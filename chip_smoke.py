@@ -6,6 +6,10 @@ through the hand-written CUDA kernels -> CG in pane layout — at the full
 size of the two FEM matrices the repository models (cant_like: 62,000 rows,
 3.1M nnz; pwtk_like: 218,000 rows, 12.0M nnz; both synthesized from fixed
 seeds), and its CSR half (csr_spmv + CG on the shifted 1024x1024 Poisson).
+Then the second entry point, sparse.auto_format, and the rest of the SpMV
+family behind it: the streaming DIA kernel and its probe on Poisson 3072^2
+(9.4M rows, 47.2M nnz), a CG solve through it, the plain DIA path, SELL on
+Poisson 1024^2 and on a 2^20-row irregular band, and SELL-P.
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -20,11 +24,24 @@ Phases, one JSON line each:
   3 far        the far kernel alone against its plain version, with times
   4 cg         CG to tol 1e-5 on an SPD system built from cant_like, 32
                iterations at tol 0 on it, and 32 fixed iterations on
-               cant_like (the cg_sbell_cant_32it workload); the launch
-               counters are zeroed just before this phase and read just
-               after it
+               cant_like (the cg_sbell_cant_32it workload)
   5 csr_cg     csr_spmv + 32 CG iterations on the shifted Poisson 1024^2
-  6 launches   the counts from phase 4, which must cover every matvec
+  6 dia        auto_format(poisson2d(3072)) is a DiaPallas; its matvec and
+               the pattern probe; K4 and K5 against their plain versions,
+               device times, GB/s and the fraction t_probe / t_kernel
+  7 dia_cg     32 CG iterations through K4 on auto_format(Poisson 3072^2
+               + I/2), with the true residual
+  8 dia_xla    auto_format(poisson2d(1024)) is a DIA (plain dia_spmv), and
+               cg_dia_poisson1024s_32it
+  9 sell       SELLSplit of Poisson 1024^2 (from ELL) and the SELL that
+               auto_format picks for a 2^20-row irregular band: K6 against
+               its plain version and scipy, with times
+ 10 sellp      SELL-P of Poisson 1024^2: K7 against its plain version and
+               scipy, with times
+ 11 launches   the kernel launch counts of each path, which must cover
+               every matvec it made; each count is zeroed just before its
+               path runs and read just after, and the launches made to
+               compare a kernel with its plain version are not counted
 
 Then a {"kernels": [...]} line, the `nvidia-smi` name and power limit, and
 last {"ok": true, "device": {...}}. Any failure raises: the script exits
@@ -111,6 +128,24 @@ def device_ms(fn, reps: int = 20):
             break
     total = sum(by_name.values())
     return (total if total > 0 else None), by_name
+
+
+def cold_device_ms(fn, reps: int = 10):
+    """Device time per call with the L2 flushed before each call: a 256 MB
+    device-to-device copy runs between calls, and its Memcpy events are
+    left out of the sum (the timed functions make no such copy)."""
+    import torch
+
+    src = torch.empty(64 << 20, device="cuda")
+    dst = torch.empty_like(src)
+
+    def run():
+        dst.copy_(src)
+        fn()
+
+    _, by_name = device_ms(run, reps)
+    t = sum(v for k, v in by_name.items() if not k.startswith("Memcpy"))
+    return t or None
 
 
 def wall_ms(fn, reps: int = 3) -> float:
@@ -390,21 +425,325 @@ def csr_cg_phase(dev):
           "residual": float(np.linalg.norm(r))})
 
 
+def hold(kind, case, kernel, plain, kernel_times):
+    """A kernel against its plain version on the same inputs (TOL_PLAIN),
+    then the device time of each (CUDA events where the profiler saw
+    nothing), back to back, so an operand that fits the 50 MB L2 is read
+    from it. Records (ms, plain_ms, max_abs_err) and returns them with the
+    kernel's time when the L2 is flushed before each call."""
+    got, want = kernel(), plain()
+    assert_close(got, want, f"{case}: {kind} kernel vs plain", TOL_PLAIN,
+                 TOL_PLAIN)
+    ms = device_ms(kernel)[0] or time_ms(kernel)
+    plain_ms = device_ms(plain)[0] or time_ms(plain)
+    kernel_times[kind][case] = (ms, plain_ms, max_err(got, want))
+    return (*kernel_times[kind][case], cold_device_ms(kernel))
+
+
+def spmv_times(fn):
+    """{device_ms, event_ms} of one whole matvec through the entry point."""
+    return {"spmv_device_ms": device_ms(fn)[0], "spmv_event_ms": time_ms(fn)}
+
+
+def dia_phase(A, dev, kernel_times, launches):
+    """auto_format(Poisson 3072^2) -> DiaPallas; its matvec and the probe
+    (the path), then K4 and K5 against their plain versions, with times."""
+    import numpy as np
+    import torch
+
+    from libhpc_tpu_torch.ops import spmv_dia
+    from libhpc_tpu_torch.sparse.auto import auto_format
+
+    t0 = time.perf_counter()
+    dp, matvec = auto_format(A)
+    build_s = time.perf_counter() - t0
+    if not isinstance(dp, spmv_dia.DiaPallas):
+        raise AssertionError(f"poisson3072 routed to {type(dp).__name__}")
+    dflat_bytes = dp.dflat.numel() * 4
+    if (dp.n_tiles, dp.T) != (72, 1 << 17) or not (
+            185e6 < dflat_bytes < 195e6 and 260e6 < dp.hbm_bytes < 272e6):
+        raise AssertionError(f"DiaPallas: {dp.n_tiles} tiles at T={dp.T}, "
+                             f"dflat {dflat_bytes} B, {dp.hbm_bytes} B")
+    dpd = dp.to(dev)
+    m, n = A.shape
+    x = np.linspace(-1.0, 1.0, n, dtype=np.float32)
+    xd = torch.from_numpy(x).to(dev)
+
+    spmv_dia.DIA_LAUNCHES = 0
+    spmv_dia.PROBE_LAUNCHES = 0
+    y = matvec(dpd, xd)
+    probe = spmv_dia.dia_pattern_probe(dpd, xd)
+    torch.cuda.synchronize()
+    launches["dia"] = {"dia": spmv_dia.DIA_LAUNCHES, "matvecs": 1,
+                       "dia_probe": spmv_dia.PROBE_LAUNCHES, "probes": 1}
+    gate(y, A @ x, "poisson3072 dia_spmv_pallas")
+    if not bool(torch.isfinite(probe).all()):
+        raise AssertionError("poisson3072 probe: non-finite output")
+
+    x_ext = spmv_dia.extend_x(dpd, xd)
+    t_k, t_kp, e_k, c_k = hold("dia", "poisson3072",
+                          lambda: spmv_dia.dia_out(dpd, x_ext),
+                          lambda: spmv_dia.dia_out_torch(dpd, x_ext),
+                          kernel_times)
+    t_p, t_pp, e_p, c_p = hold("dia_probe", "poisson3072",
+                          lambda: spmv_dia.dia_probe_out(dpd, x_ext),
+                          lambda: spmv_dia.dia_probe_out_torch(dpd, x_ext),
+                          kernel_times)
+    emit({"phase": "dia", "matrix": "poisson2d(3072)", "rows": m,
+          "nnz": int(A.nnz), "container": "DiaPallas",
+          "auto_format_s": build_s, "n_tiles": dp.n_tiles, "T": dp.T,
+          "dflat_bytes": dflat_bytes, "hbm_bytes": dp.hbm_bytes,
+          "max_abs_err_vs_scipy": float(np.abs(y.cpu().numpy()
+                                               - A @ x).max()),
+          "kernel_max_abs_err_vs_plain": e_k,
+          "probe_max_abs_err_vs_plain": e_p,
+          "kernel_device_ms": t_k, "kernel_plain_device_ms": t_kp,
+          "probe_device_ms": t_p, "probe_plain_device_ms": t_pp,
+          "kernel_cold_l2_device_ms": c_k, "probe_cold_l2_device_ms": c_p,
+          "kernel_gb_per_s": dp.hbm_bytes / (t_k * 1e-3) / 1e9,
+          "probe_gb_per_s": dp.hbm_bytes / (t_p * 1e-3) / 1e9,
+          "kernel_cold_l2_gb_per_s": (dp.hbm_bytes / (c_k * 1e-3) / 1e9
+                                      if c_k else None),
+          "fraction_probe_over_kernel": t_p / t_k,
+          "fraction_cold_l2": c_p / c_k if c_k and c_p else None,
+          "gnnz_per_s": A.nnz / (t_k * 1e-3) / 1e9,
+          **spmv_times(lambda: matvec(dpd, xd))})
+
+
+def dia_cg_phase(A, dev, launches):
+    """32 CG iterations through K4 on auto_format(A + I/2)."""
+    import numpy as np
+    import scipy.sparse as sps
+    import torch
+
+    from libhpc_tpu_torch.ops import solver, spmv_dia
+    from libhpc_tpu_torch.sparse.auto import auto_format
+
+    As = (A + sps.eye(A.shape[0], dtype=np.float32) * 0.5).tocsr()
+    dp, matvec = auto_format(As)
+    if not isinstance(dp, spmv_dia.DiaPallas):
+        raise AssertionError(f"poisson3072+I/2 routed to {type(dp).__name__}")
+    dpd = dp.to(dev)
+    n = As.shape[0]
+    b = torch.ones(n, device=dev)
+    n_it = 32
+    calls = [0]
+    out = {}
+
+    def mv(u):
+        calls[0] += 1
+        return matvec(dpd, u)
+
+    def run():
+        out["r"] = solver.cg(mv, b, tol=0.0, max_iter=n_it)
+
+    spmv_dia.DIA_LAUNCHES = 0
+    ms = wall_ms(run)
+    launches["dia_cg"] = {"dia": spmv_dia.DIA_LAUNCHES, "matvecs": calls[0]}
+    x, it, _ = out["r"]
+    r = np.ones(n) - As @ x.cpu().numpy().astype(np.float64)
+    if not (it == n_it and np.isfinite(r).all()
+            and np.linalg.norm(r) < 1e-3 * np.sqrt(n)):
+        raise AssertionError(f"DIA CG: {it} iterations, residual "
+                             f"{np.linalg.norm(r)}")
+    emit({"phase": "dia_cg", "system": "poisson2d(3072)+I/2", "rows": n,
+          "nnz": int(As.nnz), "iterations": it, "ms": ms,
+          "ms_per_iteration": ms / it, "residual": float(np.linalg.norm(r)),
+          "gnnz_per_s": it * As.nnz / (ms * 1e-3) / 1e9})
+
+
+def dia_xla_phase(dev):
+    """auto_format(Poisson 1024^2) -> DIA (plain dia_spmv), then
+    cg_dia_poisson1024s_32it on DIA(A + I/2)."""
+    import numpy as np
+    import scipy.sparse as sps
+    import torch
+
+    from libhpc_tpu_torch.bench import matrices
+    from libhpc_tpu_torch.ops import solver, spmv
+    from libhpc_tpu_torch.sparse import DIA
+    from libhpc_tpu_torch.sparse.auto import auto_format
+
+    A = matrices.poisson2d(1024)
+    dia, matvec = auto_format(A)
+    if not isinstance(dia, DIA) or matvec is not spmv.dia_spmv:
+        raise AssertionError(f"poisson1024 routed to {type(dia).__name__}")
+    diad = dia.to(dev)
+    x = np.linspace(-1.0, 1.0, A.shape[1], dtype=np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    gate(matvec(diad, xd), A @ x, "poisson1024 dia_spmv")
+    times = spmv_times(lambda: matvec(diad, xd))
+
+    As = (A + sps.eye(A.shape[0]) * 0.5).tocsr()
+    dsh = DIA.from_scipy(As).to(dev)
+    b = torch.ones(A.shape[0], device=dev)
+    n_it = 32
+    out = {}
+
+    def run():
+        out["r"] = solver.cg(lambda u: spmv.dia_spmv(dsh, u), b, tol=0.0,
+                             max_iter=n_it)
+
+    ms = wall_ms(run)
+    xs, it, _ = out["r"]
+    r = np.ones(A.shape[0]) - As @ xs.cpu().numpy().astype(np.float64)
+    if not (np.isfinite(r).all()
+            and np.linalg.norm(r) < 1e-3 * np.sqrt(A.shape[0])):
+        raise AssertionError(f"cg_dia_poisson1024s_32it residual "
+                             f"{np.linalg.norm(r)}")
+    emit({"phase": "dia_xla", "matrix": "poisson2d(1024)", "rows":
+          A.shape[0], "nnz": int(A.nnz), "container": "DIA", **times,
+          "gnnz_per_s": A.nnz / (times["spmv_device_ms"] * 1e-3) / 1e9
+          if times["spmv_device_ms"] else None})
+    emit({"phase": "dia_xla", "system": "cg_dia_poisson1024s_32it",
+          "iterations": it, "ms": ms, "ms_per_iteration": ms / it,
+          "residual": float(np.linalg.norm(r)),
+          "gnnz_per_s": it * As.nnz / (ms * 1e-3) / 1e9})
+
+
+def irregular_band(n: int, seed: int = 0):
+    """4 random nnz per row within +-120 of the diagonal
+    (tests/test_auto_format.py:43-49 at size n)."""
+    import numpy as np
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), 4)
+    cols = np.clip(rows + rng.integers(-120, 121, rows.size), 0, n - 1)
+    A = sps.coo_matrix((np.ones(rows.size, np.float32), (rows, cols)),
+                       shape=(n, n)).tocsr()
+    A.sum_duplicates()
+    return A
+
+
+def sell_case(name, A, sp, dev, kernel_times, launches):
+    """One SELL / SELLSplit operand: sell_spmv (the path) against scipy,
+    then K6 on each part against its plain version, with times."""
+    import numpy as np
+    import torch
+
+    from libhpc_tpu_torch.ops import spmv_sell
+
+    spd = sp.to(dev)
+    parts = ({"near": spd.near, "wide": spd.wide}
+             if isinstance(spd, spmv_sell.SELLSplit) else {"all": spd})
+    x = np.linspace(-1.0, 1.0, A.shape[1], dtype=np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    spmv_sell.SELL_LAUNCHES = 0
+    y = spmv_sell.sell_spmv(spd, xd)
+    torch.cuda.synchronize()
+    launches[f"sell_{name}"] = {"sell": spmv_sell.SELL_LAUNCHES,
+                                "matvecs": 1, "per_matvec": len(parts)}
+    gate(y, A @ x, f"{name} sell_spmv")
+    x3 = spmv_sell.x_panes(xd, spd.n_panes, spd.W - 1)
+    rec = {}
+    for part, s in parts.items():
+        rec[part] = hold("sell", f"{name}/{part}",
+                         lambda s=s: spmv_sell.sell_out_panes(s, x3),
+                         lambda s=s: spmv_sell.sell_out_panes_torch(s, x3),
+                         kernel_times)
+    emit({"phase": "sell", "matrix": name, "rows": A.shape[0],
+          "nnz": int(A.nnz), "container": type(sp).__name__, "W": sp.W,
+          "n_tiles": sp.n_tiles, "hbm_bytes": sp.hbm_bytes,
+          "max_abs_err_vs_scipy": float(np.abs(y.cpu().numpy()
+                                               - A @ x).max()),
+          **{f"{p}_kernel_device_ms": r[0] for p, r in rec.items()},
+          **{f"{p}_plain_device_ms": r[1] for p, r in rec.items()},
+          **{f"{p}_max_abs_err_vs_plain": r[2] for p, r in rec.items()},
+          **{f"{p}_kernel_cold_l2_device_ms": r[3] for p, r in rec.items()},
+          "kernel_gb_per_s": sp.hbm_bytes / (sum(r[0] for r in rec.values())
+                                             * 1e-3) / 1e9,
+          **spmv_times(lambda: spmv_sell.sell_spmv(spd, xd))})
+
+
+def sell_phase(A_p, dev, kernel_times, launches):
+    from libhpc_tpu_torch.ops import spmv_sell
+    from libhpc_tpu_torch.sparse import ELL
+    from libhpc_tpu_torch.sparse.auto import auto_format
+    from libhpc_tpu_torch.sparse.csr import CSR
+
+    sp = spmv_sell.sell_from_ell(ELL.from_csr(CSR.from_scipy(A_p)))
+    if not (isinstance(sp, spmv_sell.SELLSplit) and sp.n_tiles == 5120
+            and 48e6 < sp.hbm_bytes < 52e6):
+        raise AssertionError(f"Poisson 1024^2 SELL: {type(sp).__name__}, "
+                             f"{sp.n_tiles} tiles, {sp.hbm_bytes} B")
+    sell_case("poisson1024", A_p, sp, dev, kernel_times, launches)
+
+    A = irregular_band(2 ** 20)
+    t0 = time.perf_counter()
+    c, matvec = auto_format(A)
+    build_s = time.perf_counter() - t0
+    if not (isinstance(c, spmv_sell.SELL) and matvec is spmv_sell.sell_spmv
+            and c.W == 3 and c.n_tiles == 4096
+            and 40e6 < c.hbm_bytes < 44e6):
+        raise AssertionError(f"irregular band: {type(c).__name__}")
+    emit({"phase": "sell", "matrix": "irregular_band(2^20)",
+          "auto_format_s": build_s})
+    sell_case("band2^20", A, c, dev, kernel_times, launches)
+
+
+def sellp_phase(A, dev, kernel_times, launches):
+    import numpy as np
+    import torch
+
+    from libhpc_tpu_torch.ops import sellp, spmv_sell
+
+    sp = sellp.sellp_from_scipy(A)
+    if sp.n_tiles != 5120 or not sp.fill_ratio(A.nnz) < 1.001:
+        raise AssertionError(f"Poisson 1024^2 SELL-P: {sp.n_tiles} tiles")
+    spd = sp.to(dev)
+    x = np.linspace(-1.0, 1.0, A.shape[1], dtype=np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    sellp.SELLP_LAUNCHES = 0
+    y = sellp.sellp_spmv(spd, xd)
+    torch.cuda.synchronize()
+    launches["sellp"] = {"sellp": sellp.SELLP_LAUNCHES, "matvecs": 1}
+    gate(y, A @ x, "poisson1024 sellp_spmv")
+    x3 = spmv_sell.x_panes(xd, spd.n_panes)
+    t_k, t_p, err, c_k = hold("sellp", "poisson1024",
+                         lambda: sellp.sellp_out_panes(spd, x3),
+                         lambda: sellp.sellp_out_panes_torch(spd, x3),
+                         kernel_times)
+    emit({"phase": "sellp", "matrix": "poisson2d(1024)", "rows": A.shape[0],
+          "nnz": int(A.nnz), "n_tiles": sp.n_tiles,
+          "fill_ratio": sp.fill_ratio(A.nnz), "hbm_bytes": sp.hbm_bytes,
+          "max_abs_err_vs_scipy": float(np.abs(y.cpu().numpy()
+                                               - A @ x).max()),
+          "kernel_device_ms": t_k, "plain_device_ms": t_p,
+          "kernel_cold_l2_device_ms": c_k, "max_abs_err_vs_plain": err,
+          "kernel_gb_per_s": sp.hbm_bytes / (t_k * 1e-3) / 1e9,
+          **spmv_times(lambda: sellp.sellp_spmv(spd, xd))})
+
+
 def check_launches(near: int, far: int, matvecs: int) -> None:
     if near < matvecs or far < matvecs:
         raise AssertionError(f"main path launched near {near}, far {far} "
                              f"times for {matvecs} matvecs")
 
 
+def check_family_launches(launches: dict) -> None:
+    """Each path's kernel launched at least once per matvec it made."""
+    for path, rec in launches.items():
+        for kernel in ("dia", "dia_probe", "sell", "sellp"):
+            if kernel not in rec:
+                continue
+            need = (rec["probes"] if kernel == "dia_probe"
+                    else rec["matvecs"] * rec.get("per_matvec", 1))
+            if rec[kernel] < max(need, 1):
+                raise AssertionError(f"{path}: {kernel} launched "
+                                     f"{rec[kernel]} times for {need} calls")
+
+
 def run(dev):
-    """Phases 1-6 on `dev`; returns the {"kernels": [...]} record."""
+    """Phases 1-11 on `dev`; returns the {"kernels": [...]} record."""
     import torch
 
     from libhpc_tpu_torch.bench import matrices
     from libhpc_tpu_torch.ops import far_sbell, spmv_sbell
     from libhpc_tpu_torch.sparse.sbell import SBELL
 
-    kernel_times = {"near": {}, "far": {}}
+    kernel_times = {"near": {}, "far": {}, "dia": {}, "dia_probe": {},
+                    "sell": {}, "sellp": {}}
     sb_cant = A_cant = None
     for name in ("cant", "pwtk"):
         t0 = time.perf_counter()
@@ -426,12 +765,25 @@ def run(dev):
     near, far = spmv_sbell.NEAR_LAUNCHES, far_sbell.FAR_LAUNCHES
     csr_cg_phase(dev)
     check_launches(near, far, matvecs)
+    del sb_cant, A_cant
+
+    family = {}
+    A3 = matrices.poisson2d(3072)
+    dia_phase(A3, dev, kernel_times, family)
+    dia_cg_phase(A3, dev, family)
+    del A3
+    dia_xla_phase(dev)
+    A_p = matrices.poisson2d(1024)
+    sell_phase(A_p, dev, kernel_times, family)
+    sellp_phase(A_p, dev, kernel_times, family)
+    check_family_launches(family)
     emit({"phase": "launches", "near": near, "far": far,
-          "matvecs": matvecs})
+          "matvecs": matvecs, **family})
     torch.cuda.synchronize()
 
-    def entry(kind, name, source, replaces, launches):
-        ms, plain_ms, _ = kernel_times[kind]["cant/float32"]
+    def entry(kind, name, source, replaces, launches, cases):
+        ms = sum(kernel_times[kind][c][0] for c in cases)
+        plain_ms = sum(kernel_times[kind][c][1] for c in cases)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(e for _, _, e in
@@ -439,13 +791,29 @@ def run(dev):
                 "ms": ms, "plain_ms": plain_ms}
 
     near_src = "libhpc_tpu_torch/csrc/sbell_near.cu"
+    dia_src = "libhpc_tpu_torch/csrc/dia.cu"
+    cant = ["cant/float32"]
     return {"kernels": [
         entry("near", "sbell_near", near_src,
-              "libhpc_tpu/ops/spmv_pallas.py:59", near),
+              "libhpc_tpu/ops/spmv_pallas.py:59", near, cant),
         entry("near", "sbell_near_ranged", near_src,
-              "libhpc_tpu/ops/spmv_pallas.py:92", near),
+              "libhpc_tpu/ops/spmv_pallas.py:92", near, cant),
         entry("far", "far_pane", "libhpc_tpu_torch/csrc/far_pane.cu",
-              "libhpc_tpu/ops/far_pallas.py:33", far),
+              "libhpc_tpu/ops/far_pallas.py:33", far, cant),
+        entry("dia", "dia", dia_src, "libhpc_tpu/ops/dia_pallas.py:100",
+              family["dia"]["dia"] + family["dia_cg"]["dia"],
+              ["poisson3072"]),
+        entry("dia_probe", "dia_probe", dia_src,
+              "libhpc_tpu/ops/dia_pallas.py:150",
+              family["dia"]["dia_probe"], ["poisson3072"]),
+        entry("sell", "sell", "libhpc_tpu_torch/csrc/sell.cu",
+              "libhpc_tpu/ops/ell_pallas.py:191",
+              family["sell_poisson1024"]["sell"]
+              + family["sell_band2^20"]["sell"],
+              ["poisson1024/near", "poisson1024/wide"]),
+        entry("sellp", "sellp", "libhpc_tpu_torch/csrc/sellp.cu",
+              "libhpc_tpu/ops/sellp.py:213", family["sellp"]["sellp"],
+              ["poisson1024"]),
     ]}
 
 

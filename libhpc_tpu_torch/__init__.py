@@ -8,13 +8,18 @@ nvcc at their first launch (``ops/_cuda_utils.py``); on CPU tensors every
 kernel wrapper runs its plain PyTorch version instead.
 
 Ported so far: the sparse-solve main path — scipy matrix -> SBELL container
--> SBELL SpMV (near kernel + FarPane far kernel) -> CG in pane layout — and
-its CSR half (``csr_spmv`` + the Krylov solvers).
+-> SBELL SpMV (near kernel + FarPane far kernel) -> CG in pane layout — its
+CSR half (``csr_spmv`` + the Krylov solvers), and the rest of the SpMV
+family behind ``sparse.auto_format``: DIA (plain and the streaming DIA
+kernel), SELL and SELL-P.
 
-- ``libhpc_tpu_torch.sparse`` — ``CSR`` and ``SBELL`` (with its ``FarPane``
-  and ``FarBlocks`` far sets).
-- ``libhpc_tpu_torch.ops``    — ``spmv`` (``csr_spmv``, ``far_spmv``),
-  ``spmv_sbell`` and ``far_sbell`` (the kernel wrappers), ``solver``.
+- ``libhpc_tpu_torch.sparse`` — ``CSR``, ``ELL``, ``DIA``, ``SBELL`` (with
+  its ``FarPane`` and ``FarBlocks`` far sets) and ``auto_format``.
+- ``libhpc_tpu_torch.ops``    — ``spmv`` (``csr_spmv``, ``ell_spmv``,
+  ``far_spmv``, ``dia_spmv``, ``dia_spmv_t``), the kernel wrappers
+  ``spmv_sbell``, ``far_sbell``, ``spmv_dia`` (``DiaPallas``),
+  ``spmv_sell`` (``SELL``, ``SELLSplit``) and ``sellp`` (``SELLP``), and
+  ``solver``.
 - ``libhpc_tpu_torch.bench``  — the deterministic matrix generators.
 """
 

@@ -1,2 +1,3 @@
 from libhpc_tpu_torch.ops import spmv, solver  # noqa: F401
 from libhpc_tpu_torch.ops import spmv_sbell, far_sbell  # noqa: F401
+from libhpc_tpu_torch.ops import spmv_dia, spmv_sell, sellp  # noqa: F401

@@ -3,11 +3,12 @@
 Port of ``libhpc_tpu/ops/_pallas_utils.py`` (``cdiv``, ``round_up``), plus
 what a Hopper kernel needs around it:
 
-- the kernel builder: every ``csrc/*.cu`` is compiled by nvcc for sm_90a
-  into one shared library with a plain C interface, at the first launch,
-  into ``libhpc_tpu_torch/_build/`` under a name keyed by a hash of the
-  sources and flags; it is loaded with ctypes. Importing this module
-  builds nothing and touches no CUDA state.
+- the kernel builder: every ``csrc/*.cu`` is compiled by its own nvcc for
+  sm_90a, all at once, and the objects are linked into one shared library
+  with a plain C interface, at the first launch, into
+  ``libhpc_tpu_torch/_build/`` under a name keyed by a hash of the sources
+  and flags; it is loaded with ctypes. Importing this module builds
+  nothing and touches no CUDA state.
 - ``kernel_fn``: a C entry point of that library with its argtypes set
   (every pointer and the stream as c_void_p, sizes as c_int).
 - ``check_launch``: raises when an entry point returns a CUDA error.
@@ -33,7 +34,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 
 def cdiv(a: int, b: int) -> int:
@@ -68,7 +70,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     """Where the kernel library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -76,20 +78,45 @@ def library_path() -> Path:
 
 
 def build_library() -> Path:
-    """Compile csrc/*.cu into the keyed shared library unless it exists.
-    The build writes a temporary file and renames it, so concurrent
-    builders never load a half-written library."""
+    """Compile csrc/*.cu into the keyed shared library unless it exists:
+    one nvcc per source, all started together, then one link. The build
+    writes temporary files and renames the library into place, so
+    concurrent builders never load a half-written library."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
+    nvcc = find_nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    jobs = []
+    try:
+        for src in _sources():
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            jobs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        errors = []
+        for src, _, proc in jobs:
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                errors.append(f"{src.name} ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        res = subprocess.run(
+            [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(o) for _, o, _ in jobs)],
+            capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for _, obj, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            obj.unlink(missing_ok=True)
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
     return so
 
 

@@ -2,8 +2,8 @@
 
 Port of ``libhpc_tpu/sparse/csr.py:CSR``: the interchange container of the
 main path's CSR half, with int32 indices and scipy bridges for oracle
-testing. ``from_coo``, ``tocoo``, ``to_ell`` and ``to_bsr`` come with the
-slices that port COO, ELL and BSR.
+testing, and ``to_ell``. ``from_coo``, ``tocoo`` and ``to_bsr`` come with
+the slices that port COO and BSR.
 """
 
 from __future__ import annotations
@@ -88,6 +88,14 @@ class CSR(TensorLeaves):
         return out.index_put_((self.row_of_nnz().long(),
                                self.indices.long()), self.data,
                               accumulate=True)
+
+    # -- format conversions ------------------------------------------------
+
+    def to_ell(self, max_nnz_per_row: int | None = None,
+               pad_multiple: int = 8):
+        from libhpc_tpu_torch.sparse.ell import ELL
+
+        return ELL.from_csr(self, max_nnz_per_row, pad_multiple=pad_multiple)
 
     # -- ops ---------------------------------------------------------------
 

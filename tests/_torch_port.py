@@ -13,10 +13,13 @@ import torch
 
 
 def _port_class(name):
-    from libhpc_tpu_torch.sparse import csr, sbell
+    from libhpc_tpu_torch.ops import sellp, spmv_dia, spmv_sell
+    from libhpc_tpu_torch.sparse import csr, dia, ell, sbell
 
     return {"CSR": csr.CSR, "SBELL": sbell.SBELL, "FarPane": sbell.FarPane,
-            "FarBlocks": sbell.FarBlocks}[name]
+            "FarBlocks": sbell.FarBlocks, "DIA": dia.DIA, "ELL": ell.ELL,
+            "DiaPallas": spmv_dia.DiaPallas, "SELL": spmv_sell.SELL,
+            "SELLSplit": spmv_sell.SELLSplit, "SELLP": sellp.SELLP}[name]
 
 
 def port_of(ref):

@@ -17,7 +17,9 @@ import scipy.sparse as sps
 import torch
 
 from libhpc_tpu_torch.bench import matrices
-from libhpc_tpu_torch.ops import _cuda_utils, far_sbell, solver, spmv_sbell
+from libhpc_tpu_torch.ops import (_cuda_utils, far_sbell, sellp, solver,
+                                  spmv_dia, spmv_sbell, spmv_sell)
+from libhpc_tpu_torch.sparse import DIA, auto
 from libhpc_tpu_torch.sparse.sbell import B, W_PANES, SBELL, FarBlocks, FarPane
 
 from _torch_port import cuda_device  # noqa: F401  (fixture)
@@ -168,3 +170,187 @@ def test_cg_panes_on_card_matches_cpu(cuda_device):
     assert np.linalg.norm(r) <= 1e-4 * np.linalg.norm(b[:n])
     np.testing.assert_allclose(x, spmv_sbell.panes_to_x(sb, xc).numpy()[:n],
                                rtol=1e-3, atol=1e-6)
+
+
+def _banded(n, offs, dtype=np.float32):
+    return sps.diags([np.full(n - abs(o), 1.0 + o, dtype) for o in offs],
+                     offs, shape=(n, n), format="csr", dtype=dtype)
+
+
+def _irregular_banded(n=4000):
+    rng = np.random.default_rng(0)
+    rows = np.repeat(np.arange(n), 4)
+    cols = np.clip(rows + rng.integers(-120, 121, rows.size), 0, n - 1)
+    A = sps.coo_matrix((np.ones(rows.size, np.float32), (rows, cols)),
+                       shape=(n, n)).tocsr()
+    A.sum_duplicates()
+    return A
+
+
+DIA_MATRICES = {
+    "banded9000": lambda: _banded(9000, (-70, -1, 0, 1, 65)),
+    "poisson96": lambda: matrices.poisson2d(96),
+    "multi_tile_poisson128": lambda: matrices.poisson2d(128),
+    "wide_rect": lambda: sps.diags([np.ones(1000)], [0], shape=(1000, 200000),
+                                   format="csr", dtype=np.float32),
+    "many_diagonals": lambda: _banded(5000, tuple(range(-47, 49))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DIA_MATRICES))
+def test_dia_kernels_match_plain(cuda_device, name):
+    """K4 and K5 against their plain versions on the same x_ext."""
+    A = DIA_MATRICES[name]()
+    dp = DIA.from_scipy(A).to_pallas(T=1 << 13).to(cuda_device)
+    x = np.random.default_rng(2).standard_normal(A.shape[1])
+    x_ext = spmv_dia.extend_x(dp, torch.from_numpy(x.astype(np.float32))
+                              .to(cuda_device))
+    n0, p0 = spmv_dia.DIA_LAUNCHES, spmv_dia.PROBE_LAUNCHES
+    got = spmv_dia.dia_out(dp, x_ext)
+    probe = spmv_dia.dia_probe_out(dp, x_ext)
+    assert (spmv_dia.DIA_LAUNCHES, spmv_dia.PROBE_LAUNCHES) == (n0 + 1, p0 + 1)
+    torch.cuda.synchronize()
+    _close(got, spmv_dia.dia_out_torch(dp, x_ext))
+    _close(probe, spmv_dia.dia_probe_out_torch(dp, x_ext))
+    y = spmv_dia.dia_spmv_pallas(dp, torch.from_numpy(x.astype(np.float32))
+                                 .to(cuda_device))
+    np.testing.assert_allclose(y.cpu().numpy(), A @ x.astype(np.float32),
+                               rtol=1e-4, atol=1e-4)
+
+
+SELL_MATRICES = {
+    "banded1000": lambda: _banded(1000, (-2, -1, 0, 1, 3)),
+    "poisson64": lambda: matrices.poisson2d(64),
+    "irregular_banded": _irregular_banded,
+    "split_banded20000": lambda: _banded(20000, (-2, -1, 0, 1, 3)),
+    "rect": lambda: sps.random(500, 1300, density=0.01, format="csr",
+                               dtype=np.float32, random_state=7),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SELL_MATRICES))
+def test_sell_kernel_matches_plain(cuda_device, name):
+    """K6 on every part (a SELLSplit runs two launches) against its plain
+    version, and the whole sell_spmv against scipy."""
+    A = SELL_MATRICES[name]()
+    sp = spmv_sell.sell_from_scipy(A).to(cuda_device)
+    parts = ((sp.near, sp.wide) if isinstance(sp, spmv_sell.SELLSplit)
+             else (sp,))
+    if name == "split_banded20000":
+        assert len(parts) == 2
+    x = np.random.default_rng(3).standard_normal(A.shape[1]) \
+        .astype(np.float32)
+    x3 = spmv_sell.x_panes(torch.from_numpy(x).to(cuda_device), sp.n_panes,
+                           sp.W - 1)
+    for part in parts:
+        n0 = spmv_sell.SELL_LAUNCHES
+        got = spmv_sell.sell_out_panes(part, x3)
+        assert spmv_sell.SELL_LAUNCHES == n0 + 1
+        torch.cuda.synchronize()
+        assert torch.all(got[part.n_stripes * B:] == 0)
+        _close(got, spmv_sell.sell_out_panes_torch(part, x3))
+    n0 = spmv_sell.SELL_LAUNCHES
+    y = spmv_sell.sell_spmv(sp, torch.from_numpy(x).to(cuda_device))
+    assert spmv_sell.SELL_LAUNCHES == n0 + len(parts)
+    np.testing.assert_allclose(y.cpu().numpy(), A @ x, rtol=1e-4, atol=1e-5)
+
+
+def _no_window_restriction():
+    n = 8192
+    rng = np.random.default_rng(8)
+    rows = np.arange(n).repeat(2)
+    cols = np.concatenate([np.arange(n)[:, None],
+                           rng.integers(0, n, (n, 1))], axis=1).ravel()
+    A = sps.coo_matrix((np.ones(rows.size, np.float32), (rows, cols)),
+                       shape=(n, n)).tocsr()
+    A.sum_duplicates()
+    return A
+
+
+SELLP_MATRICES = {
+    "poisson96": lambda: matrices.poisson2d(96),
+    "no_window_restriction": _no_window_restriction,
+    "rect": lambda: sps.random(1111, 2222, density=0.004, random_state=6,
+                               format="csr", dtype=np.float32),
+    "fem_blocks": lambda: matrices.block_random(
+        300, block=8, blocks_per_row=5, seed=3, half_band=4,
+        far_fraction=0.02),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SELLP_MATRICES))
+def test_sellp_kernel_matches_plain(cuda_device, name):
+    A = sps.csr_matrix(SELLP_MATRICES[name](), dtype=np.float32)
+    sp = sellp.sellp_from_scipy(A).to(cuda_device)
+    x = np.random.default_rng(4).standard_normal(A.shape[1]) \
+        .astype(np.float32)
+    x3 = spmv_sell.x_panes(torch.from_numpy(x).to(cuda_device), sp.n_panes)
+    n0 = sellp.SELLP_LAUNCHES
+    got = sellp.sellp_out_panes(sp, x3)
+    assert sellp.SELLP_LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    _close(got, sellp.sellp_out_panes_torch(sp, x3))
+    y = sellp.sellp_spmv(sp, torch.from_numpy(x).to(cuda_device))
+    np.testing.assert_allclose(y.cpu().numpy(), A @ x, rtol=1e-4, atol=1e-4)
+
+
+AUTO_MATRICES = {
+    "poisson64": ("DIA", lambda: matrices.poisson2d(64), None),
+    "poisson96_pallas": ("DiaPallas", lambda: matrices.poisson2d(96),
+                         spmv_dia),
+    "irregular_banded": ("SELL", _irregular_banded, spmv_sell),
+    "spread_diagonals": ("SELLP", lambda: _banded(
+        4096, tuple(9 * k - 450 for k in range(101))), sellp),
+    "fem": ("SBELL", lambda: matrices.block_random(
+        200, block=8, blocks_per_row=6, seed=2, half_band=5,
+        far_fraction=0.05), spmv_sbell),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AUTO_MATRICES))
+def test_auto_format_routes_on_card(cuda_device, monkeypatch, name):
+    """Each auto_format route moved to the card: the matvec matches scipy
+    at 2e-3 and a kernel route launches its kernel."""
+    kind, make, mod = AUTO_MATRICES[name]
+    if kind == "DiaPallas":
+        monkeypatch.setattr(auto, "_DIA_VMEM_BYTES", 1024)
+    A = make()
+    c, mv = auto.auto_format(A)
+    assert type(c).__name__ == kind
+    c = c.to(cuda_device)
+    counters = {"DiaPallas": "DIA_LAUNCHES", "SELL": "SELL_LAUNCHES",
+                "SELLP": "SELLP_LAUNCHES", "SBELL": "NEAR_LAUNCHES"}
+    n0 = getattr(mod, counters[kind]) if mod else 0
+    x = np.linspace(-1, 1, A.shape[1]).astype(np.float32)
+    y = mv(c, torch.from_numpy(x).to(cuda_device))
+    assert y.device.type == "cuda"
+    np.testing.assert_allclose(y.cpu().numpy(), A @ x, rtol=2e-3, atol=2e-3)
+    if mod:
+        assert getattr(mod, counters[kind]) > n0
+
+
+def test_new_wrappers_raise_on_bad_input(cuda_device):
+    A = matrices.poisson2d(64)
+    dp = DIA.from_scipy(A).to_pallas(T=1 << 13).to(cuda_device)
+    x_ext = spmv_dia.extend_x(dp, torch.zeros(A.shape[1], device=cuda_device))
+    with pytest.raises(ValueError):
+        spmv_dia.dia_out(dp, x_ext[:-1])
+    with pytest.raises(TypeError):
+        spmv_dia.dia_probe_out(dp, x_ext.double())
+    with pytest.raises(ValueError):
+        spmv_dia.dia_out(dp, x_ext.cpu())
+    sp = spmv_sell.sell_from_scipy(A).to(cuda_device)
+    x3 = spmv_sell.x_panes(torch.zeros(A.shape[1], device=cuda_device),
+                           sp.n_panes, sp.W - 1)
+    with pytest.raises(ValueError):
+        spmv_sell.sell_out_panes(sp, x3[:sp.n_panes - 1])
+    with pytest.raises(TypeError):
+        spmv_sell.sell_out_panes(sp, x3.half())
+    spp = sellp.sellp_from_scipy(A).to(cuda_device)
+    x3p = spmv_sell.x_panes(torch.zeros(A.shape[1], device=cuda_device),
+                            spp.n_panes)
+    with pytest.raises(ValueError):
+        sellp.sellp_out_panes(spp, x3p.transpose(1, 2).contiguous()
+                              .transpose(1, 2))
+    with pytest.raises(ValueError):
+        sellp.sellp_out_panes(spp, x3p.cpu())

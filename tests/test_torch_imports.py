@@ -14,7 +14,9 @@ import numpy as np
 import torch
 
 from libhpc_tpu_torch.bench import matrices
-from libhpc_tpu_torch.ops import far_sbell, spmv_sbell
+from libhpc_tpu_torch.ops import far_sbell, sellp, spmv_dia, spmv_sbell
+from libhpc_tpu_torch.ops import spmv_sell
+from libhpc_tpu_torch.sparse import DIA
 from libhpc_tpu_torch.sparse.sbell import B, W_PANES, SBELL, FarPane
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -25,12 +27,18 @@ MODULES = [
     "libhpc_tpu_torch.sparse._leaves",
     "libhpc_tpu_torch.sparse.csr",
     "libhpc_tpu_torch.sparse.sbell",
+    "libhpc_tpu_torch.sparse.dia",
+    "libhpc_tpu_torch.sparse.ell",
+    "libhpc_tpu_torch.sparse.auto",
     "libhpc_tpu_torch.ops",
     "libhpc_tpu_torch.ops._cuda_utils",
     "libhpc_tpu_torch.ops.spmv",
     "libhpc_tpu_torch.ops.solver",
     "libhpc_tpu_torch.ops.spmv_sbell",
     "libhpc_tpu_torch.ops.far_sbell",
+    "libhpc_tpu_torch.ops.spmv_dia",
+    "libhpc_tpu_torch.ops.spmv_sell",
+    "libhpc_tpu_torch.ops.sellp",
     "libhpc_tpu_torch.bench",
     "libhpc_tpu_torch.bench.matrices",
 ]
@@ -89,3 +97,32 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
     spmv_sbell.sbell_spmv(sb, torch.from_numpy(xpad[:A.shape[1]]))
     assert spmv_sbell.NEAR_LAUNCHES == 0
     assert far_sbell.FAR_LAUNCHES == 0
+
+
+def test_cpu_tensors_take_the_plain_path_spmv_family(monkeypatch):
+    """K4-K7's wrappers on CPU tensors equal their plain versions and
+    leave their launch counters at 0."""
+    for mod, name in ((spmv_dia, "DIA_LAUNCHES"), (spmv_dia, "PROBE_LAUNCHES"),
+                      (spmv_sell, "SELL_LAUNCHES"), (sellp, "SELLP_LAUNCHES")):
+        monkeypatch.setattr(mod, name, 0)
+    A = matrices.poisson2d(64)
+    x = torch.from_numpy(np.linspace(-1, 1, A.shape[1]).astype(np.float32))
+    dp = DIA.from_scipy(A).to_pallas(T=1 << 12)
+    x_ext = spmv_dia.extend_x(dp, x)
+    assert torch.equal(spmv_dia.dia_out(dp, x_ext),
+                       spmv_dia.dia_out_torch(dp, x_ext))
+    assert torch.equal(spmv_dia.dia_probe_out(dp, x_ext),
+                       spmv_dia.dia_probe_out_torch(dp, x_ext))
+    sp = spmv_sell.sell_from_scipy(A)
+    x3 = spmv_sell.x_panes(x, sp.n_panes, sp.W - 1)
+    assert torch.equal(spmv_sell.sell_out_panes(sp, x3),
+                       spmv_sell.sell_out_panes_torch(sp, x3))
+    spp = sellp.sellp_from_scipy(A)
+    x3p = spmv_sell.x_panes(x, spp.n_panes)
+    assert torch.equal(sellp.sellp_out_panes(spp, x3p),
+                       sellp.sellp_out_panes_torch(spp, x3p))
+    spmv_dia.dia_spmv_pallas(dp, x)
+    spmv_sell.sell_spmv(sp, x)
+    sellp.sellp_spmv(spp, x)
+    assert (spmv_dia.DIA_LAUNCHES, spmv_dia.PROBE_LAUNCHES,
+            spmv_sell.SELL_LAUNCHES, sellp.SELLP_LAUNCHES) == (0, 0, 0, 0)
