@@ -9,7 +9,11 @@ seeds), and its CSR half (csr_spmv + CG on the shifted 1024x1024 Poisson).
 Then the second entry point, sparse.auto_format, and the rest of the SpMV
 family behind it: the streaming DIA kernel and its probe on Poisson 3072^2
 (9.4M rows, 47.2M nnz), a CG solve through it, the plain DIA path, SELL on
-Poisson 1024^2 and on a 2^20-row irregular band, and SELL-P.
+Poisson 1024^2 and on a 2^20-row irregular band, and SELL-P. Then the sort
+family, libHPC's flagship: merge_sort_u32 on 500,000,000 seeded u32 keys
+(the reference bench's workload, bench.py:482-525, one 2^29 segment) and on
+100,000,000 (three segments, so the pair merge runs), the radix pipeline
+and bitonic network, and the histogram kernel on the keys' digit planes.
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -38,10 +42,29 @@ Phases, one JSON line each:
                its plain version and scipy, with times
  10 sellp      SELL-P of Poisson 1024^2: K7 against its plain version and
                scipy, with times
- 11 launches   the kernel launch counts of each path, which must cover
-               every matvec it made; each count is zeroed just before its
-               path runs and read just after, and the launches made to
-               compare a kernel with its plain version are not counted
+ 11 sort       merge_sort_u32 (K8 chunk sort, K9 merge levels) on 500M
+               u32, exactly equal to torch.sort of the same keys; device
+               time (one call replayed as a CUDA graph) and wall time
+               beside torch.sort's and libHPC's 360 ms
+ 12 sort_segmented  the same on 100M u32 = [2^26, 2^24, 2^24] segments
+               folded by two pair merges (K10)
+ 13 sort_kernels  K8, the staged 2^16 chunk sort, K9 and K10 each exactly
+               against its plain version on the buffers of a 2^26 sort,
+               invert and unflip cases included, with device times (CUDA
+               graph replays)
+ 14 radix      radix_sort_pipeline, bitonic_sort, sort_u32 and argsort_u32
+               (plain torch) on 2^22 keys against torch.sort
+ 15 histogram  K15 on the four 8-bit digit planes of the 500M keys, exactly
+               against its plain version and the column sums of
+               tile_histograms, with times
+ 16 launches   the kernel launch counts of each path, which must cover
+               every call it made (the sort and histogram paths: exactly
+               the launches their sizes call for); each count is zeroed
+               just before its path runs and read just after, and the
+               launches made to compare a kernel with its plain version are
+               not counted
+ 17 sort_split one 500M sort profiled (CUPTI): device time of K8, of K9
+               and of the torch ops of the merge-path search
 
 Then a {"kernels": [...]} line, the `nvidia-smi` name and power limit, and
 last {"ok": true, "device": {...}}. Any failure raises: the script exits
@@ -106,28 +129,56 @@ def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
 def device_ms(fn, reps: int = 20):
     """Device time per call: the summed durations of every GPU kernel and
     memset that `reps` calls of fn ran, from torch.profiler (CUPTI), with
-    the per-kernel split. (None, {}) when the profiler saw no device work."""
+    the per-kernel split. (None, {}) when three profiles in a row saw no
+    device work or missed launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    by_name = {}
-    for _ in range(3):      # a profile now and then comes back empty
+    for _ in range(3):
+        # a profile now and then comes back empty, or misses some of the
+        # launches: every call launches the same kernels, so a count that
+        # is not a multiple of reps marks a lossy profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+        by_name, count = {}, {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 us = e.time_range.elapsed_us()
                 by_name[e.name] = by_name.get(e.name, 0.0) + us / reps / 1e3
-        if by_name:
-            break
-    total = sum(by_name.values())
-    return (total if total > 0 else None), by_name
+                count[e.name] = count.get(e.name, 0) + 1
+        if by_name and all(c % reps == 0 for c in count.values()):
+            total = sum(by_name.values())
+            return (total if total > 0 else None), by_name
+    return None, {}
+
+
+def graph_ms(fn, reps: int = 5) -> float:
+    """Device time per call of fn without the host's gaps: one call
+    captured in a CUDA graph (after a warm call on a side stream), `reps`
+    replays timed with CUDA events; the kernels' durations plus the graph's
+    short gaps between them. For functions of many small launches, where
+    events around eager calls time the host, and where one profile would
+    hold tens of thousands of records (the profiler then drops records in
+    that profile and the ones after it). fn must not wait on the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(graph.replay, warmup=1, reps=reps)
+    del graph
+    return ms
 
 
 def cold_device_ms(fn, reps: int = 10):
@@ -715,6 +766,269 @@ def sellp_phase(A, dev, kernel_times, launches):
           **spmv_times(lambda: sellp.sellp_spmv(spd, xd))})
 
 
+SORT_SEED = 20260501
+FLIP = -(2 ** 31)        # u32 order of int32 bit patterns: x ^ FLIP
+LIBHPC_SORT_MS = 360.0   # BASELINE.md:11-12: 500M u32, RTX 3080 Ti laptop
+
+
+def sort_keys(n: int, dev, seed: int = SORT_SEED):
+    """n random u32 keys on the card (int32 bit patterns), from a seed."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device=dev,
+                         generator=g)
+
+
+def sorted_bits(bits):
+    """torch.sort's u32 order of int32 bit patterns (the plain whole)."""
+    import torch
+
+    return torch.sort(bits ^ FLIP).values ^ FLIP
+
+
+def expected_sort_launches(n: int, log2c: int) -> dict:
+    """Launches of K8, of the merge kernel and of its pair merges (K10) that
+    merge_sort_u32 makes for n keys: per segment of 2^p one chunk sort, the
+    merge levels inside a chunk larger than K8 takes, p - log2c levels;
+    one pair merge per extra segment."""
+    from libhpc_tpu_torch.ops import sort_merge as sm
+
+    segs = sm._decompose(n, 1 << log2c)
+    sub = min(log2c, sm.LOG2C_KERNEL)
+    levels = sum(log2c - sub + s.bit_length() - 1 - log2c for s in segs)
+    return {"chunk": len(segs), "merge": levels + len(segs) - 1,
+            "pair": len(segs) - 1}
+
+
+def sort_path(n: int, dev, segs_want, launches, name: str):
+    """merge_sort_u32 on n seeded u32 keys (the path, counters zeroed just
+    before and read just after), held exactly against torch.sort; then its
+    device and wall times beside torch.sort's."""
+    import torch
+
+    from libhpc_tpu_torch.ops import sort_merge as sm
+
+    segs = sm._decompose(n, 1 << sm.DEFAULT_LOG2C)
+    if segs != segs_want:
+        raise AssertionError(f"{name}: {n} decomposes into {segs}")
+    keys = sort_keys(n, dev)
+    ku = keys.view(torch.uint32)
+    torch.cuda.synchronize()
+    sm.CHUNK_LAUNCHES = sm.MERGE_LAUNCHES = sm.PAIR_LAUNCHES = 0
+    out = sm.merge_sort_u32(ku)
+    torch.cuda.synchronize()
+    launches[name] = {"chunk": sm.CHUNK_LAUNCHES,
+                      "merge": sm.MERGE_LAUNCHES, "pair": sm.PAIR_LAUNCHES,
+                      "need": expected_sort_launches(n, sm.DEFAULT_LOG2C)}
+    if out.dtype != torch.uint32 or out.shape != (n,):
+        raise AssertionError(f"{name}: {out.dtype} {tuple(out.shape)}")
+    want = sorted_bits(keys)
+    if not torch.equal(out.view(torch.int32), want):
+        bad = int((out.view(torch.int32) != want).sum())
+        raise AssertionError(f"{name}: {bad} of {n} keys differ from "
+                             "torch.sort")
+    del out, want
+    flipped = keys ^ FLIP
+    fns = {"sort": lambda: sm.merge_sort_u32(ku),
+           "torch_sort": lambda: torch.sort(flipped)}
+    rec = {"sort_device_ms": graph_ms(fns["sort"], reps=3),
+           # torch.sort is a few long kernels: events time the device
+           "torch_sort_device_ms": time_ms(fns["torch_sort"], reps=5)}
+    for k, f in fns.items():
+        rec[f"{k}_wall_ms"] = wall_ms(f, reps=3)
+    torch.cuda.synchronize()
+    emit({"phase": name, "n": n, "segments": segs,
+          "log2c": sm.DEFAULT_LOG2C, "log2w": sm.DEFAULT_LOG2W,
+          "kernel_window": 1 << sm.LOG2W_KERNEL,
+          "kernel_sub_chunk": 1 << sm.LOG2C_KERNEL,
+          "equal_to_torch_sort": True, **launches[name], **rec,
+          "g_keys_per_s_device": n / (rec["sort_device_ms"] * 1e-3) / 1e9,
+          "g_keys_per_s_wall": n / (rec["sort_wall_ms"] * 1e-3) / 1e9,
+          "fraction_torch_sort_over_sort_device":
+              rec["torch_sort_device_ms"] / rec["sort_device_ms"],
+          "libhpc_500m_ms_rtx3080ti_laptop": LIBHPC_SORT_MS})
+    return keys
+
+
+def hold_exact(kind, case, kernel, plain, region, kernel_times,
+               timer=graph_ms):
+    """A kernel against its plain version on the same inputs, exactly over
+    `region` (the data region of a work buffer), then the device time of
+    each by `timer`. Records (ms, plain_ms, max_abs_err)."""
+    import torch
+
+    got, want = region(kernel()), region(plain())
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{case}: {kind} kernel differs from its plain "
+                             f"version in {int((got != want).sum())} places")
+    err = float((got.long() - want.long()).abs().max())
+    del got, want
+    kernel_times[kind][case] = (timer(kernel), timer(plain), err)
+    return kernel_times[kind][case]
+
+
+def sort_kernels_phase(keys, kernel_times, log2p: int = 26):
+    """K8, K9 and K10 each against its plain version on the buffers of a
+    2^log2p-key sort (default log2c/log2w), invert and unflip cases
+    included; the pair merge folds in a 2^(log2p-2) segment."""
+    import torch
+
+    from libhpc_tpu_torch.ops import sort_merge as sm
+
+    P = 1 << log2p
+    x = keys[:P].contiguous()
+    PAD = 1 << sm.DEFAULT_LOG2W
+    rows = (2 * PAD + P + 16 * 128) // 128
+
+    def data(buf, n=P):
+        return buf.reshape(-1)[PAD:PAD + n]
+
+    rec = {}
+    for case, kw in {"asc": dict(alternate=True, invert=False, unflip=False),
+                     "invert_unflip": dict(alternate=True, invert=True,
+                                           unflip=True)}.items():
+        for log2c, kind in ((sm.LOG2C_KERNEL, "sort_chunk"),
+                            (sm.DEFAULT_LOG2C, "sort_chunk_staged")):
+            t = hold_exact(
+                kind, f"2^{log2p}/{case}",
+                lambda: sm._chunk_sort(x, PAD // 128, rows, log2c=log2c,
+                                       **kw),
+                lambda: sm._chunk_sort_torch(x, PAD // 128, rows,
+                                             log2c=log2c, **kw),
+                data, kernel_times)
+            rec[f"{kind}_2^{log2c}_{case}"] = t
+
+    for log2r, inv, unf in ((sm.DEFAULT_LOG2C, False, False),
+                            (log2p - 1, True, True)):
+        runs = sm._chunk_sort_torch(x, PAD // 128, rows, log2c=log2r,
+                                    alternate=True, invert=False,
+                                    unflip=False)
+        lw = min(sm.DEFAULT_LOG2W, log2r)
+        rec[f"sort_merge_level_r2^{log2r}"] = hold_exact(
+            "sort_merge_level", f"2^{log2p}/r2^{log2r}",
+            lambda: sm._merge_level(runs, P, PAD, rows, log2r, lw, inv, unf),
+            lambda: sm._merge_level_torch(runs, P, PAD, rows, log2r, lw,
+                                          inv, unf),
+            data, kernel_times)
+        del runs
+
+    LB = P >> 2
+    bufA, _ = sm._sort_segment(x, sm.DEFAULT_LOG2C, sm.DEFAULT_LOG2W,
+                               invert=False, unflip=False)
+    bufB, _ = sm._sort_segment(keys[P:P + LB].contiguous(),
+                               sm.DEFAULT_LOG2C, sm.DEFAULT_LOG2W,
+                               invert=True, unflip=False)
+    lw = min(sm.DEFAULT_LOG2W, log2p - 2)   # merge_sort_u32's window rule
+    for desc_out, unf in ((True, False), (False, True)):
+        rec[f"sort_merge_pair_desc{int(desc_out)}"] = hold_exact(
+            "sort_merge_pair",
+            f"2^{log2p}+2^{log2p - 2}/desc{int(desc_out)}",
+            lambda: sm._merge_pair(bufA, bufB, P, LB, PAD, lw, desc_out,
+                                   unf),
+            lambda: sm._merge_pair_torch(bufA, bufB, P, LB, PAD, lw,
+                                         desc_out, unf),
+            lambda b: data(b, P + LB), kernel_times)
+    del bufA, bufB
+    torch.cuda.synchronize()
+    emit({"phase": "sort_kernels", "P": P,
+          **{f"{k}_ms": v[0] for k, v in rec.items()},
+          **{f"{k}_plain_ms": v[1] for k, v in rec.items()},
+          "max_abs_err": max(v[2] for v in rec.values())})
+
+
+def radix_phase(dev):
+    """radix_sort_pipeline and bitonic_sort (plain torch; no kernel of
+    their own) at 2^22 keys, exactly against torch.sort, with times."""
+    import torch
+
+    from libhpc_tpu_torch.ops import sort
+
+    n = 1 << 22
+    keys = sort_keys(n, dev, seed=SORT_SEED + 1)
+    want = sorted_bits(keys)
+    rec = {}
+    for name in ("radix_sort_pipeline", "bitonic_sort", "sort_u32"):
+        fn = getattr(sort, name)
+        got = fn(keys.view(torch.uint32))
+        if not torch.equal(got.view(torch.int32), want):
+            raise AssertionError(f"{name}: differs from torch.sort")
+        rec[f"{name}_wall_ms"] = wall_ms(lambda: fn(keys.view(torch.uint32)))
+    s, order = sort.argsort_u32(keys)
+    if not (torch.equal(s.view(torch.int32), want)
+            and torch.equal(keys[order.long()], want)):
+        raise AssertionError("argsort_u32: differs from torch.sort")
+    emit({"phase": "radix", "n": n, "equal_to_torch_sort": True, **rec})
+
+
+def histogram_phase(keys, kernel_times, launches):
+    """K15 on the four 8-bit digit planes of the sort's keys: the path
+    (histogram_pallas per plane, counter zeroed before and read after),
+    then each plane exactly against histogram_pallas_torch and the column
+    sums of tile_histograms, with times."""
+    import torch
+
+    from libhpc_tpu_torch.ops import histogram, sort
+
+    planes = [sort.digit_of(keys, shift) for shift in (0, 8, 16, 24)]
+    torch.cuda.synchronize()
+    histogram.HIST_LAUNCHES = 0
+    hists = [histogram.histogram_pallas(d, 256) for d in planes]
+    torch.cuda.synchronize()
+    launches["histogram"] = {"hist": histogram.HIST_LAUNCHES,
+                             "need": {"hist": len(planes)}}
+    n = keys.shape[0]
+    for i, (d, h) in enumerate(zip(planes, hists)):
+        cols = sort.tile_histograms(d).sum(dim=0, dtype=torch.int32)
+        if int(h.sum()) != n or not torch.equal(h, cols):
+            raise AssertionError(f"plane {i}: K15 differs from the column "
+                                 "sums of tile_histograms")
+        del cols
+        # one kernel per call, and a plain version that waits on the host
+        # (bincount): CUDA events time both
+        hold_exact("histogram", f"plane{i}",
+                   lambda d=d: histogram.histogram_pallas(d, 256),
+                   lambda d=d: histogram.histogram_pallas_torch(d, 256),
+                   lambda h: h, kernel_times, timer=time_ms)
+    t = kernel_times["histogram"]
+    emit({"phase": "histogram", "n": n, "planes": len(planes),
+          "launches": launches["histogram"]["hist"],
+          **{f"{c}_ms": v[0] for c, v in t.items()},
+          **{f"{c}_plain_ms": v[1] for c, v in t.items()},
+          "max_abs_err": max(v[2] for v in t.values()),
+          "gb_per_s_plane0": n * 4 / (t["plane0"][0] * 1e-3) / 1e9})
+
+
+def sort_split_phase(dev) -> None:
+    """Where the 500M sort's device time goes: one call profiled (CUPTI),
+    kernels summed by name. Last of all the profiles, because one of this
+    size makes the profiler drop records in the profiles after it."""
+    import torch
+
+    from libhpc_tpu_torch.ops import sort_merge as sm
+
+    ku = sort_keys(500_000_000, dev).view(torch.uint32)
+    total, split = device_ms(lambda: sm.merge_sort_u32(ku), reps=1)
+    if not total:
+        raise AssertionError("sort_split: the profiler saw no device work")
+    kernels = {"K8 chunk_kernel": 0.0, "K9 merge_kernel": 0.0}
+    torch_ops = {}
+    for name, ms in split.items():
+        if "chunk_kernel" in name:
+            kernels["K8 chunk_kernel"] += ms
+        elif "merge_kernel" in name:
+            kernels["K9 merge_kernel"] += ms
+        else:
+            short = name.split("<")[0].split("(")[0].replace("void ", "")
+            torch_ops[short] = torch_ops.get(short, 0.0) + ms
+    emit({"phase": "sort_split", "n": 500_000_000, "cupti_ms": total,
+          **{f"{k}_ms": v for k, v in kernels.items()},
+          "torch_ops_ms": sum(torch_ops.values()),
+          "torch_ops_top_ms": dict(sorted(torch_ops.items(),
+                                          key=lambda kv: -kv[1])[:4])})
+
+
 def check_launches(near: int, far: int, matvecs: int) -> None:
     if near < matvecs or far < matvecs:
         raise AssertionError(f"main path launched near {near}, far {far} "
@@ -732,10 +1046,16 @@ def check_family_launches(launches: dict) -> None:
             if rec[kernel] < max(need, 1):
                 raise AssertionError(f"{path}: {kernel} launched "
                                      f"{rec[kernel]} times for {need} calls")
+        # the sort and histogram paths: exactly the launches their sizes
+        # call for, and at least one of each
+        for kernel, need in rec.get("need", {}).items():
+            if rec[kernel] != need or (need < 1 and kernel != "pair"):
+                raise AssertionError(f"{path}: {kernel} launched "
+                                     f"{rec[kernel]} times, expected {need}")
 
 
 def run(dev):
-    """Phases 1-11 on `dev`; returns the {"kernels": [...]} record."""
+    """Phases 1-17 on `dev`; returns the {"kernels": [...]} record."""
     import torch
 
     from libhpc_tpu_torch.bench import matrices
@@ -743,7 +1063,9 @@ def run(dev):
     from libhpc_tpu_torch.sparse.sbell import SBELL
 
     kernel_times = {"near": {}, "far": {}, "dia": {}, "dia_probe": {},
-                    "sell": {}, "sellp": {}}
+                    "sell": {}, "sellp": {}, "sort_chunk": {},
+                    "sort_chunk_staged": {}, "sort_merge_level": {},
+                    "sort_merge_pair": {}, "histogram": {}}
     sb_cant = A_cant = None
     for name in ("cant", "pwtk"):
         t0 = time.perf_counter()
@@ -776,7 +1098,17 @@ def run(dev):
     A_p = matrices.poisson2d(1024)
     sell_phase(A_p, dev, kernel_times, family)
     sellp_phase(A_p, dev, kernel_times, family)
+    del A_p
+
+    keys = sort_path(500_000_000, dev, [1 << 29], family, "sort")
+    sort_path(100_000_000, dev, [1 << 26, 1 << 24, 1 << 24], family,
+              "sort_segmented")
+    sort_kernels_phase(keys, kernel_times)
+    radix_phase(dev)
+    histogram_phase(keys, kernel_times, family)
+    del keys
     check_family_launches(family)
+    sort_split_phase(dev)
     emit({"phase": "launches", "near": near, "far": far,
           "matvecs": matvecs, **family})
     torch.cuda.synchronize()
@@ -791,6 +1123,9 @@ def run(dev):
                 "ms": ms, "plain_ms": plain_ms}
 
     near_src = "libhpc_tpu_torch/csrc/sbell_near.cu"
+    merge_src = "libhpc_tpu_torch/csrc/sort_merge.cu"
+    sort_paths = {k: family["sort"][k] + family["sort_segmented"][k]
+                  for k in ("chunk", "merge", "pair")}
     dia_src = "libhpc_tpu_torch/csrc/dia.cu"
     cant = ["cant/float32"]
     return {"kernels": [
@@ -814,6 +1149,19 @@ def run(dev):
         entry("sellp", "sellp", "libhpc_tpu_torch/csrc/sellp.cu",
               "libhpc_tpu/ops/sellp.py:213", family["sellp"]["sellp"],
               ["poisson1024"]),
+        entry("sort_chunk", "sort_chunk",
+              "libhpc_tpu_torch/csrc/sort_chunk.cu",
+              "libhpc_tpu/ops/sort_pallas.py:131",
+              sort_paths["chunk"], ["2^26/asc"]),
+        entry("sort_merge_level", "sort_merge_level", merge_src,
+              "libhpc_tpu/ops/sort_pallas.py:301",
+              sort_paths["merge"] - sort_paths["pair"], ["2^26/r2^16"]),
+        entry("sort_merge_pair", "sort_merge_pair", merge_src,
+              "libhpc_tpu/ops/sort_pallas.py:430", sort_paths["pair"],
+              ["2^26+2^24/desc1"]),
+        entry("histogram", "histogram", "libhpc_tpu_torch/csrc/histogram.cu",
+              "libhpc_tpu/ops/histogram.py:59",
+              family["histogram"]["hist"], ["plane0"]),
     ]}
 
 

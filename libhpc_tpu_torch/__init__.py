@@ -11,15 +11,18 @@ Ported so far: the sparse-solve main path — scipy matrix -> SBELL container
 -> SBELL SpMV (near kernel + FarPane far kernel) -> CG in pane layout — its
 CSR half (``csr_spmv`` + the Krylov solvers), and the rest of the SpMV
 family behind ``sparse.auto_format``: DIA (plain and the streaming DIA
-kernel), SELL and SELL-P.
+kernel), SELL and SELL-P; and the sort family: the merge-path u32 sort,
+the radix module and the histogram.
 
 - ``libhpc_tpu_torch.sparse`` — ``CSR``, ``ELL``, ``DIA``, ``SBELL`` (with
   its ``FarPane`` and ``FarBlocks`` far sets) and ``auto_format``.
 - ``libhpc_tpu_torch.ops``    — ``spmv`` (``csr_spmv``, ``ell_spmv``,
   ``far_spmv``, ``dia_spmv``, ``dia_spmv_t``), the kernel wrappers
   ``spmv_sbell``, ``far_sbell``, ``spmv_dia`` (``DiaPallas``),
-  ``spmv_sell`` (``SELL``, ``SELLSplit``) and ``sellp`` (``SELLP``), and
-  ``solver``.
+  ``spmv_sell`` (``SELL``, ``SELLSplit``) and ``sellp`` (``SELLP``),
+  ``solver``, ``sort_merge`` (``merge_sort_u32``), ``sort`` (``sort_u32``,
+  ``argsort_u32``, ``radix_sort_pipeline``, ``bitonic_sort``) and
+  ``histogram`` (``histogram_pallas``).
 - ``libhpc_tpu_torch.bench``  — the deterministic matrix generators.
 """
 

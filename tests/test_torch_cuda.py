@@ -354,3 +354,202 @@ def test_new_wrappers_raise_on_bad_input(cuda_device):
                               .transpose(1, 2))
     with pytest.raises(ValueError):
         sellp.sellp_out_panes(spp, x3p.cpu())
+
+
+# ---- sort (K8-K10) and histogram (K15) -------------------------------------
+
+FLIP = -(2 ** 31)
+
+
+def _keys(n, seed=5, dev="cpu"):
+    x = np.random.default_rng(seed).integers(0, 2**32, size=n,
+                                             dtype=np.uint32)
+    return torch.from_numpy(x.view(np.int32)).to(dev)
+
+
+def _region(buf, pad, n):
+    return buf.reshape(-1)[pad:pad + n]
+
+
+def _sorted_bits(bits):
+    """The u32 sort of int32 bit patterns, as int32 bit patterns."""
+    return torch.sort(bits ^ FLIP).values ^ FLIP
+
+
+@pytest.mark.parametrize("alternate,invert,unflip", [
+    (True, False, False), (True, True, True), (False, True, False),
+    (False, False, True)])
+@pytest.mark.parametrize("log2c,n_chunks", [(1, 6), (7, 3), (10, 5),
+                                            (13, 2), (13, 1)])
+def test_chunk_kernel_matches_plain(cuda_device, log2c, n_chunks, alternate,
+                                    invert, unflip):
+    from libhpc_tpu_torch.ops import sort_merge as sm
+
+    P = n_chunks << log2c
+    x = _keys(P, seed=log2c, dev=cuda_device)
+    pad_rows = 3
+    rows = pad_rows + -(-P // 128) + 2
+    kw = dict(log2c=log2c, alternate=alternate, invert=invert, unflip=unflip)
+    n0 = sm.CHUNK_LAUNCHES
+    got = sm.chunk_sort_kernel(x, pad_rows, rows, **kw)
+    assert sm.CHUNK_LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    want = sm._chunk_sort_torch(x, pad_rows, rows, **kw)
+    assert torch.equal(_region(got, pad_rows * 128, P),
+                       _region(want, pad_rows * 128, P))
+
+
+@pytest.mark.parametrize("alternate,invert,unflip", [
+    (True, False, False), (False, True, True)])
+def test_staged_chunk_sort_on_card(cuda_device, alternate, invert, unflip):
+    """Chunks of 2^16 (the reference's default): 2^13 sub-chunks by K8,
+    then three merge levels by K9."""
+    from libhpc_tpu_torch.ops import sort_merge as sm
+
+    P = (3 if alternate else 1) << 16
+    x = _keys(P, seed=7, dev=cuda_device)
+    rows = (2 * (1 << 17) + P + 2048) // 128
+    kw = dict(log2c=16, alternate=alternate, invert=invert, unflip=unflip)
+    c0, m0 = sm.CHUNK_LAUNCHES, sm.MERGE_LAUNCHES
+    got = sm._chunk_sort(x, 1024, rows, **kw)
+    assert (sm.CHUNK_LAUNCHES, sm.MERGE_LAUNCHES) == (c0 + 1, m0 + 3)
+    want = sm._chunk_sort_torch(x, 1024, rows, **kw)
+    assert torch.equal(_region(got, 1 << 17, P), _region(want, 1 << 17, P))
+
+
+@pytest.mark.parametrize("invert,unflip", [(False, False), (True, True)])
+@pytest.mark.parametrize("log2r,n_pairs,ties", [(10, 3, False), (10, 1, True),
+                                                (12, 5, True),
+                                                (14, 2, False)])
+def test_merge_level_kernel_matches_plain(cuda_device, log2r, n_pairs, ties,
+                                          invert, unflip):
+    from libhpc_tpu_torch.ops import sort_merge as sm
+
+    P = n_pairs << (log2r + 1)
+    x = _keys(P, seed=log2r, dev=cuda_device)
+    if ties:
+        x = x % 37
+    PAD = 1 << 15
+    rows = (2 * PAD + P + 2048) // 128
+    runs = sm._chunk_sort_torch(x, PAD // 128, rows, log2c=log2r,
+                                alternate=True, invert=False, unflip=False)
+    n0 = sm.MERGE_LAUNCHES
+    got = sm._merge_level(runs, P, PAD, rows, log2r, min(17, log2r),
+                          invert, unflip)
+    assert sm.MERGE_LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    want = sm._merge_level_torch(runs, P, PAD, rows, log2r, min(17, log2r),
+                                 invert, unflip)
+    assert torch.equal(_region(got, PAD, P), _region(want, PAD, P))
+
+
+@pytest.mark.parametrize("desc_out,unflip", [(True, False), (False, True)])
+@pytest.mark.parametrize("LA,LB,ties", [(1 << 14, 1 << 12, False),
+                                        (1 << 12, 1 << 13, True),
+                                        (1 << 16, 1 << 16, False)])
+def test_merge_pair_kernel_matches_plain(cuda_device, LA, LB, ties,
+                                         desc_out, unflip):
+    from libhpc_tpu_torch.ops import sort_merge as sm
+
+    a, b = _keys(LA, 1, cuda_device), _keys(LB, 2, cuda_device)
+    if ties:
+        a, b = a % 11, b % 11
+    bufA, PAD = sm._sort_segment(a, 10, 12, invert=False, unflip=False)
+    bufB, _ = sm._sort_segment(b, 10, 12, invert=True, unflip=False)
+    lw = min(12, ((LA + LB) & -(LA + LB)).bit_length() - 1)
+    m0, p0 = sm.MERGE_LAUNCHES, sm.PAIR_LAUNCHES
+    got = sm._merge_pair(bufA, bufB, LA, LB, PAD, lw, desc_out, unflip)
+    assert (sm.MERGE_LAUNCHES, sm.PAIR_LAUNCHES) == (m0 + 1, p0 + 1)
+    torch.cuda.synchronize()
+    want = sm._merge_pair_torch(bufA, bufB, LA, LB, PAD, lw, desc_out,
+                                unflip)
+    assert torch.equal(_region(got, PAD, LA + LB),
+                       _region(want, PAD, LA + LB))
+
+
+@pytest.mark.parametrize("n,log2c,log2w", [
+    (1, 10, 11), (111, 10, 11), (3987, 10, 11), (5120, 10, 11),
+    (11300, 10, 11), (100_003, 10, 11), (3000, 16, 17),
+    ((1 << 20) + 7, 16, 17), (5_000_000, 16, 17)])
+def test_merge_sort_on_card(cuda_device, n, log2c, log2w):
+    from libhpc_tpu_torch.ops import sort_merge as sm
+
+    x = _keys(n, seed=n % 1000, dev=cuda_device)
+    c0, m0 = sm.CHUNK_LAUNCHES, sm.MERGE_LAUNCHES
+    got = sm.merge_sort_u32(x.view(torch.uint32), log2c=log2c, log2w=log2w)
+    assert got.dtype == torch.uint32 and got.device.type == "cuda"
+    assert torch.equal(got.view(torch.int32), _sorted_bits(x))
+    if n > 1:
+        assert sm.CHUNK_LAUNCHES > c0 and sm.MERGE_LAUNCHES >= m0
+    if n <= 200_000:   # the CPU path (plain versions) agrees
+        cpu = sm.merge_sort_u32(x.cpu(), log2c=log2c, log2w=log2w)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           cpu.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 111, 50_000, (1 << 20) + 3])
+def test_radix_and_bitonic_on_card(cuda_device, n):
+    from libhpc_tpu_torch.ops import sort as srt
+
+    x = _keys(n, seed=3, dev=cuda_device)
+    want = _sorted_bits(x)
+    for fn in (srt.radix_sort_pipeline, srt.bitonic_sort, srt.sort_u32):
+        got = fn(x.view(torch.uint32))
+        assert got.device.type == "cuda"
+        assert torch.equal(got.view(torch.int32), want), fn.__name__
+    s, order = srt.argsort_u32(x)
+    assert torch.equal(x[order.long()], s.view(torch.int32))
+
+
+@pytest.mark.parametrize("n_bins", [1, 16, 256, 4096, 1 << 15])
+@pytest.mark.parametrize("n", [1, 111, 3987, 262_201, 10_000_003])
+def test_histogram_kernel_matches_plain(cuda_device, n, n_bins):
+    from libhpc_tpu_torch.ops import histogram as hist
+
+    rng = np.random.default_rng(n)
+    x = rng.integers(-3, n_bins + 3, size=n).astype(np.int32)
+    xt = torch.from_numpy(x).to(cuda_device)
+    n0 = hist.HIST_LAUNCHES
+    got = hist.histogram_pallas(xt, n_bins)
+    assert hist.HIST_LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (n_bins,)
+    assert torch.equal(got, hist.histogram_pallas_torch(xt, n_bins))
+    want = np.bincount(x[(x >= 0) & (x < n_bins)], minlength=n_bins)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_histogram_kernel_few_values(cuda_device):
+    """Every element in one bin: the shared-memory atomics all collide."""
+    from libhpc_tpu_torch.ops import histogram as hist
+
+    x = torch.full((3_000_001,), 7, dtype=torch.int32, device=cuda_device)
+    got = hist.histogram_pallas(x, 256)
+    assert int(got[7]) == 3_000_001 and int(got.sum()) == 3_000_001
+
+
+def test_sort_wrappers_raise_on_bad_input(cuda_device):
+    from libhpc_tpu_torch.ops import histogram as hist
+    from libhpc_tpu_torch.ops import sort_merge as sm
+
+    x = _keys(4096, dev=cuda_device)
+    kw = dict(alternate=True, invert=False, unflip=False)
+    with pytest.raises(TypeError):
+        sm.chunk_sort_kernel(x.long(), 0, 40, log2c=10, **kw)
+    with pytest.raises(ValueError):
+        sm.chunk_sort_kernel(x, 0, 40, log2c=14, **kw)
+    with pytest.raises(ValueError):
+        sm.chunk_sort_kernel(x[:3000], 0, 40, log2c=10, **kw)
+    with pytest.raises(ValueError):
+        sm.chunk_sort_kernel(x[::2], 0, 40, log2c=10, **kw)
+    buf = sm._chunk_sort_torch(x, 16, 64, log2c=10, **kw)
+    with pytest.raises(ValueError):
+        sm._merge_pair(buf, buf.cpu(), 2048, 2048, 2048, 10, True, False)
+    with pytest.raises(TypeError):
+        sm._merge_level(buf.long(), 4096, 2048, 64, 10, 10, False, False)
+    with pytest.raises(TypeError):
+        hist.histogram_pallas(x.float(), 256)
+    with pytest.raises(ValueError):
+        hist.histogram_pallas(x, (1 << 15) + 1)
+    with pytest.raises(ValueError):
+        hist.histogram_pallas(x.reshape(64, 64)[:, :8], 256)

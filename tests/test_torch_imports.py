@@ -39,6 +39,9 @@ MODULES = [
     "libhpc_tpu_torch.ops.spmv_dia",
     "libhpc_tpu_torch.ops.spmv_sell",
     "libhpc_tpu_torch.ops.sellp",
+    "libhpc_tpu_torch.ops.histogram",
+    "libhpc_tpu_torch.ops.sort",
+    "libhpc_tpu_torch.ops.sort_merge",
     "libhpc_tpu_torch.bench",
     "libhpc_tpu_torch.bench.matrices",
 ]
@@ -126,3 +129,27 @@ def test_cpu_tensors_take_the_plain_path_spmv_family(monkeypatch):
     sellp.sellp_spmv(spp, x)
     assert (spmv_dia.DIA_LAUNCHES, spmv_dia.PROBE_LAUNCHES,
             spmv_sell.SELL_LAUNCHES, sellp.SELLP_LAUNCHES) == (0, 0, 0, 0)
+
+
+def test_cpu_tensors_take_the_plain_path_sort(monkeypatch):
+    """K8-K10's and K15's wrappers on CPU tensors equal their plain
+    versions and leave their launch counters at 0."""
+    from libhpc_tpu_torch.ops import histogram, sort_merge as sm
+
+    for mod, name in ((sm, "CHUNK_LAUNCHES"), (sm, "MERGE_LAUNCHES"),
+                      (sm, "PAIR_LAUNCHES"), (histogram, "HIST_LAUNCHES")):
+        monkeypatch.setattr(mod, name, 0)
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 2**32, size=1 << 13, dtype=np.uint32).view(np.int32))
+    kw = dict(log2c=10, alternate=True, invert=False, unflip=False)
+    runs = sm.chunk_sort_kernel(x, 16, 100, **kw)
+    assert torch.equal(runs[16:80], sm._chunk_sort_torch(x, 16, 100,
+                                                         **kw)[16:80])
+    merged = sm._merge_level(runs, 1 << 13, 2048, 100, 10, 10, False, False)
+    assert torch.equal(merged[16:80], sm._merge_level_torch(
+        runs, 1 << 13, 2048, 100, 10, 10, False, False)[16:80])
+    sm.merge_sort_u32(x[:5000], log2c=10, log2w=11)
+    h = histogram.histogram_pallas(x & 255, 256)
+    assert torch.equal(h, histogram.histogram_pallas_torch(x & 255, 256))
+    assert (sm.CHUNK_LAUNCHES, sm.MERGE_LAUNCHES, sm.PAIR_LAUNCHES,
+            histogram.HIST_LAUNCHES) == (0, 0, 0, 0)
