@@ -13,7 +13,9 @@ Poisson 1024^2 and on a 2^20-row irregular band, and SELL-P. Then the sort
 family, libHPC's flagship: merge_sort_u32 on 500,000,000 seeded u32 keys
 (the reference bench's workload, bench.py:482-525, one 2^29 segment) and on
 100,000,000 (three segments, so the pair merge runs), the radix pipeline
-and bitonic network, and the histogram kernel on the keys' digit planes.
+and bitonic network, and the histogram kernel on the keys' digit planes;
+then its key-value form (merge_argsort_u32 on the 500M keys,
+merge_sort_kv_u32 on 100M) and the exclusive scans on 500M elements.
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -57,18 +59,40 @@ Phases, one JSON line each:
  15 histogram  K15 on the four 8-bit digit planes of the 500M keys, exactly
                against its plain version and the column sums of
                tile_histograms, with times
- 16 launches   the kernel launch counts of each path, which must cover
-               every call it made (the sort and histogram paths: exactly
-               the launches their sizes call for); each count is zeroed
-               just before its path runs and read just after, and the
-               launches made to compare a kernel with its plain version are
-               not counted
- 17 sort_split one 500M sort profiled (CUPTI): device time of K8, of K9
+ 16 argsort    merge_argsort_u32 (K11 chunk sort, K12 merge levels) on the
+               500M keys of phase sort: keys exactly torch.sort's, order a
+               permutation with keys[order] the sorted keys; device time
+               (CUDA-graph replay) and wall time beside torch.sort's
+ 17 sort_kv_segmented  merge_sort_kv_u32 on 100M keys of a seeded 16-value
+               alphabet (0, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF among them)
+               with float32 payloads: [2^26, 2^24, 2^24] segments, two K12
+               pair merges; the (key, payload) pairs equal the input's
+ 18 kv_kernels K11, the staged 2^15 chunk, K12 as a level and as a pair,
+               each exactly against its plain version (keys and payloads)
+               on the buffers of a 2^26 sort of distinct keys
+ 19 scan       K14 on 500M int32 flags (digit 0 of the keys == 0) exactly
+               against its plain version and int64 cumsum, on a wraparound
+               case; K13 on 500M seeded f32 within 1e-4 of a float64
+               cumsum; both again at 2^22; times beside torch.cumsum
+ 20 launches   the kernel launch counts of each path, which must cover
+               every call it made (the sort, kv sort, scan and histogram
+               paths: exactly the launches their sizes call for); each
+               count is zeroed just before its path runs and read just
+               after, and the launches made to compare a kernel with its
+               plain version are not counted
+ 21 sort_split one 500M sort profiled (CUPTI): device time of K8, of K9
                and of the torch ops of the merge-path search
+ 22 library    torch.sparse CSR matvecs of the SpMV kernels' matrices,
+               the library yardstick of K1-K7 (after every profile)
 
-Then a {"kernels": [...]} line, the `nvidia-smi` name and power limit, and
-last {"ok": true, "device": {...}}. Any failure raises: the script exits
-non-zero and prints no result. It needs CUDA and the repository beside it.
+Then a {"kernels": [...]} line (every kernel with its time, its plain
+version's, its bound -- the larger of its bytes over 3.35 TB/s and its
+float32 operations over 67 TFLOP/s -- and the time of one PyTorch call
+computing the same function: a torch.sparse CSR matvec for the SpMV
+kernels, torch.sort for the sorts, torch.bincount, torch.cumsum), the
+`nvidia-smi` name and power limit, and last {"ok": true, "device": {...}}.
+Any failure raises: the script exits non-zero and prints no result. It
+needs CUDA and the repository beside it.
 """
 
 from __future__ import annotations
@@ -81,6 +105,17 @@ import time
 
 TOL_PLAIN = 1e-5      # kernel vs plain version: rtol, and atol * max|y|
 TOL_GATE = 2e-3       # vs scipy: the bench's correctness gate
+TOL_SCAN = 1e-4       # K13 vs float64: rtol and atol (test_scan_reduce.py)
+
+# the card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): device memory
+# bytes a second, and float32 operations a second outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
+
+# (kind, case) -> (bytes the function must move, f32 operations it does),
+# and kind -> ms of one PyTorch call computing the same function
+WORK: dict = {}
+LIBRARY_MS: dict = {}
 
 
 def emit(obj) -> None:
@@ -126,11 +161,12 @@ def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 20):
+def device_ms(fn, reps: int = 20, want=None):
     """Device time per call: the summed durations of every GPU kernel and
     memset that `reps` calls of fn ran, from torch.profiler (CUPTI), with
     the per-kernel split. (None, {}) when three profiles in a row saw no
-    device work or missed launches."""
+    device work or missed launches. `want` maps a substring of kernel
+    names to the launches one call makes; a profile with fewer is lossy."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -152,7 +188,10 @@ def device_ms(fn, reps: int = 20):
                 us = e.time_range.elapsed_us()
                 by_name[e.name] = by_name.get(e.name, 0.0) + us / reps / 1e3
                 count[e.name] = count.get(e.name, 0) + 1
-        if by_name and all(c % reps == 0 for c in count.values()):
+        seen = {w: sum(c for k, c in count.items() if w in k)
+                for w in (want or {})}
+        if (by_name and all(c % reps == 0 for c in count.values())
+                and all(seen[w] == want[w] * reps for w in seen)):
             total = sum(by_name.values())
             return (total if total > 0 else None), by_name
     return None, {}
@@ -213,6 +252,35 @@ def wall_ms(fn, reps: int = 3) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def leaf_bytes(container) -> int:
+    """Bytes of a container's own tensor fields (nested ones left out)."""
+    import dataclasses
+
+    import torch
+
+    return sum(nbytes(v) for f in dataclasses.fields(container)
+               if isinstance(v := getattr(container, f.name), torch.Tensor))
+
+
+def csr_library_ms(A, dev) -> float:
+    """One torch.sparse CSR matvec of scipy matrix A on the card (the
+    library call computing the same product as K1-K7)."""
+    import numpy as np
+    import torch
+
+    A = A.tocsr().astype(np.float32)
+    At = torch.sparse_csr_tensor(
+        torch.from_numpy(A.indptr.astype(np.int64)),
+        torch.from_numpy(A.indices.astype(np.int64)),
+        torch.from_numpy(A.data), size=A.shape).to(dev)
+    x = torch.linspace(-1, 1, A.shape[1], device=dev)
+    return time_ms(lambda: At @ x)
 
 
 def max_err(got, want) -> float:
@@ -307,6 +375,11 @@ def spmv_phase(name, A, sb, dev, kernel_times):
                                  dv["far_plain"] or ev["far_plain"],
                                  max_err(far_k, far_p))
     t_spmv = dv["spmv"] or ev["spmv"]
+    if case == "cant/float32":
+        WORK[("near", case)] = (leaf_bytes(sbd) + nbytes(x3, near_k),
+                                2 * sbd.vflat.numel())
+        WORK[("far", case)] = (leaf_bytes(sbd.far) + nbytes(x3, far_k),
+                               2 * sbd.far.bt.numel())
     emit({"phase": "spmv", "matrix": name, "dtype": dtype, "rows": m,
           "nnz": int(A.nnz), "n_stripes": sbd.n_stripes,
           "n_tiles": sbd.n_tiles, "hbm_bytes": sbd.hbm_bytes,
@@ -374,7 +447,7 @@ def cg_phase(A_cant, sb_cant, dev):
     A = spd_from(A_cant)
     n = A.shape[0]
     t0 = time.perf_counter()
-    sb = SBELL.from_scipy(A).to(dev)
+    sb = SBELL.from_scipy(A, device=dev)
     build_s = time.perf_counter() - t0
     b = np.zeros(sb.n_panes * 1024, np.float32)
     b[:n] = 1.0
@@ -457,7 +530,7 @@ def csr_cg_phase(dev):
 
     A_s = matrices.poisson2d(1024)
     A = (A_s + sps.eye(A_s.shape[0]) * 0.5).tocsr().astype(np.float32)
-    csr = CSR.from_scipy(A).to(dev)
+    csr = CSR.from_scipy(A, device=dev)
     b = torch.ones(A.shape[0], device=dev)
     n_it = 32
     out = {}
@@ -532,6 +605,9 @@ def dia_phase(A, dev, kernel_times, launches):
         raise AssertionError("poisson3072 probe: non-finite output")
 
     x_ext = spmv_dia.extend_x(dpd, xd)
+    moved = nbytes(dpd.dflat, x_ext, y) + (dp.n_tiles * dp.T - m) * 4
+    WORK[("dia", "poisson3072")] = (moved, 2 * dpd.dflat.numel())
+    WORK[("dia_probe", "poisson3072")] = (moved, dpd.dflat.numel())
     t_k, t_kp, e_k, c_k = hold("dia", "poisson3072",
                           lambda: spmv_dia.dia_out(dpd, x_ext),
                           lambda: spmv_dia.dia_out_torch(dpd, x_ext),
@@ -626,7 +702,7 @@ def dia_xla_phase(dev):
     times = spmv_times(lambda: matvec(diad, xd))
 
     As = (A + sps.eye(A.shape[0]) * 0.5).tocsr()
-    dsh = DIA.from_scipy(As).to(dev)
+    dsh = DIA.from_scipy(As, device=dev)
     b = torch.ones(A.shape[0], device=dev)
     n_it = 32
     out = {}
@@ -689,6 +765,9 @@ def sell_case(name, A, sp, dev, kernel_times, launches):
     x3 = spmv_sell.x_panes(xd, spd.n_panes, spd.W - 1)
     rec = {}
     for part, s in parts.items():
+        out_bytes = (s.n_stripes + s.W - 1) * 1024 * 4
+        WORK[("sell", f"{name}/{part}")] = (
+            leaf_bytes(s) + nbytes(x3) + out_bytes, 2 * s.vflat.numel())
         rec[part] = hold("sell", f"{name}/{part}",
                          lambda s=s: spmv_sell.sell_out_panes(s, x3),
                          lambda s=s: spmv_sell.sell_out_panes_torch(s, x3),
@@ -751,6 +830,9 @@ def sellp_phase(A, dev, kernel_times, launches):
     launches["sellp"] = {"sellp": sellp.SELLP_LAUNCHES, "matvecs": 1}
     gate(y, A @ x, "poisson1024 sellp_spmv")
     x3 = spmv_sell.x_panes(xd, spd.n_panes)
+    WORK[("sellp", "poisson1024")] = (
+        leaf_bytes(spd) + nbytes(x3) + spd.n_stripes * 1024 * 4,
+        2 * spd.vflat.numel())
     t_k, t_p, err, c_k = hold("sellp", "poisson1024",
                          lambda: sellp.sellp_out_panes(spd, x3),
                          lambda: sellp.sellp_out_panes_torch(spd, x3),
@@ -788,12 +870,14 @@ def sorted_bits(bits):
     return torch.sort(bits ^ FLIP).values ^ FLIP
 
 
-def expected_sort_launches(n: int, log2c: int) -> dict:
-    """Launches of K8, of the merge kernel and of its pair merges (K10) that
-    merge_sort_u32 makes for n keys: per segment of 2^p one chunk sort, the
-    merge levels inside a chunk larger than K8 takes, p - log2c levels;
-    one pair merge per extra segment."""
-    from libhpc_tpu_torch.ops import sort_merge as sm
+def expected_sort_launches(n: int, log2c: int, sm=None) -> dict:
+    """Launches of the chunk kernel, of the merge kernel and of its pair
+    merges that module sm's sort (sort_merge: K8, K9/K10; sort_merge_kv:
+    K11, K12) makes for n keys: per segment of 2^p one chunk sort, the
+    merge levels inside a chunk larger than the chunk kernel takes, p -
+    log2c levels; one pair merge per extra segment."""
+    if sm is None:
+        from libhpc_tpu_torch.ops import sort_merge as sm
 
     segs = sm._decompose(n, 1 << log2c)
     sub = min(log2c, sm.LOG2C_KERNEL)
@@ -915,6 +999,20 @@ def sort_kernels_phase(keys, kernel_times, log2p: int = 26):
         del runs
 
     LB = P >> 2
+    flipped = keys[:P + LB] ^ FLIP
+    for kind, case, rows_of in (
+            ("sort_chunk", f"2^{log2p}/asc", 1 << sm.LOG2C_KERNEL),
+            ("sort_merge_level", f"2^{log2p}/r2^{sm.DEFAULT_LOG2C}",
+             2 << sm.DEFAULT_LOG2C)):
+        WORK[(kind, case)] = (8 * P, 0)
+        LIBRARY_MS[kind] = time_ms(
+            lambda r=rows_of: torch.sort(flipped[:P].view(-1, r), dim=1),
+            reps=5)
+    WORK[("sort_merge_pair", f"2^{log2p}+2^{log2p - 2}/desc1")] = (
+        8 * (P + LB), 0)
+    LIBRARY_MS["sort_merge_pair"] = time_ms(lambda: torch.sort(flipped),
+                                            reps=5)
+    del flipped
     bufA, _ = sm._sort_segment(x, sm.DEFAULT_LOG2C, sm.DEFAULT_LOG2W,
                                invert=False, unflip=False)
     bufB, _ = sm._sort_segment(keys[P:P + LB].contiguous(),
@@ -992,12 +1090,317 @@ def histogram_phase(keys, kernel_times, launches):
                    lambda d=d: histogram.histogram_pallas_torch(d, 256),
                    lambda h: h, kernel_times, timer=time_ms)
     t = kernel_times["histogram"]
+    WORK[("histogram", "plane0")] = (nbytes(planes[0], hists[0]), 0)
+    LIBRARY_MS["histogram"] = time_ms(
+        lambda: torch.bincount(planes[0], minlength=256), reps=5)
     emit({"phase": "histogram", "n": n, "planes": len(planes),
           "launches": launches["histogram"]["hist"],
           **{f"{c}_ms": v[0] for c, v in t.items()},
           **{f"{c}_plain_ms": v[1] for c, v in t.items()},
           "max_abs_err": max(v[2] for v in t.values()),
           "gb_per_s_plane0": n * 4 / (t["plane0"][0] * 1e-3) / 1e9})
+
+
+def u32_pairs(keys, vals):
+    """(key, payload) pairs packed into int64 (key high) and sorted: equal
+    for two results of an unstable sort that kept every payload beside its
+    key."""
+    import torch
+
+    k = keys.view(torch.int32).long() & 0xFFFFFFFF
+    v = vals.view(torch.int32).long() & 0xFFFFFFFF
+    return torch.sort((k << 32) | v).values
+
+
+def kv_path(name, n, keys, fn, launches, segs_want):
+    """One kv sort of n keys through `fn` (the path: counters zeroed just
+    before and read just after), the launches it must make, and its device
+    time (CUDA-graph replay) and wall time beside torch.sort's with its
+    indices, the library call computing the same output."""
+    import torch
+
+    from libhpc_tpu_torch.ops import sort_merge_kv as kv
+
+    segs = kv._decompose(n, 1 << kv.DEFAULT_LOG2C)
+    if segs != segs_want:
+        raise AssertionError(f"{name}: {n} decomposes into {segs}")
+    torch.cuda.synchronize()
+    kv.CHUNK_LAUNCHES = kv.MERGE_LAUNCHES = kv.PAIR_LAUNCHES = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches[name] = {"chunk": kv.CHUNK_LAUNCHES, "merge": kv.MERGE_LAUNCHES,
+                      "pair": kv.PAIR_LAUNCHES,
+                      "need": expected_sort_launches(n, kv.DEFAULT_LOG2C, kv)}
+    want = sorted_bits(keys)
+    if out[0].dtype != torch.uint32 or not torch.equal(
+            out[0].view(torch.int32), want):
+        raise AssertionError(f"{name}: keys differ from torch.sort")
+    del want
+    flipped = keys ^ FLIP
+    rec = {"device_ms": graph_ms(fn, reps=3),
+           "torch_sort_device_ms": time_ms(lambda: torch.sort(flipped),
+                                           reps=5),
+           "wall_ms": wall_ms(fn, reps=3),
+           "torch_sort_wall_ms": wall_ms(lambda: torch.sort(flipped),
+                                         reps=3)}
+    del flipped
+    return out, rec, segs
+
+
+def argsort_phase(keys, launches):
+    """merge_argsort_u32 on the sort phase's 500M keys (one 2^29 segment,
+    default log2c/log2w): keys exactly torch.sort's, order a permutation
+    with keys[order] the sorted keys; device and wall time."""
+    import torch
+
+    from libhpc_tpu_torch.ops import sort_merge_kv as kv
+
+    n = keys.shape[0]
+    ku = keys.view(torch.uint32)
+    (s, order), rec, segs = kv_path(
+        "argsort", n, keys, lambda: kv.merge_argsort_u32(ku), launches,
+        [1 << 29])
+    if order.dtype != torch.int32 or order.shape != (n,):
+        raise AssertionError(f"argsort: order {order.dtype} {order.shape}")
+    if not torch.equal(keys[order.long()], s.view(torch.int32)):
+        raise AssertionError("argsort: keys[order] differs from the keys")
+    if not torch.equal(torch.sort(order).values,
+                       torch.arange(n, dtype=torch.int32, device=keys.device)):
+        raise AssertionError("argsort: order is not a permutation")
+    del s, order
+    torch.cuda.synchronize()
+    emit({"phase": "argsort", "n": n, "segments": segs,
+          "log2c": kv.DEFAULT_LOG2C, "log2w": kv.DEFAULT_LOG2W,
+          "kernel_sub_chunk": 1 << kv.LOG2C_KERNEL,
+          "kernel_window": 1 << kv.LOG2W_KERNEL,
+          "equal_to_torch_sort": True, "order_is_permutation": True,
+          **launches["argsort"], **rec,
+          "g_keys_per_s_device": n / (rec["device_ms"] * 1e-3) / 1e9,
+          "fraction_torch_sort_over_argsort_device":
+              rec["torch_sort_device_ms"] / rec["device_ms"]})
+    return rec
+
+
+def sort_kv_segmented_phase(dev, launches):
+    """merge_sort_kv_u32 on 100M keys of a seeded 16-value alphabet
+    (0, 0x7FFFFFFF, 0x80000000 and 0xFFFFFFFF among them) with float32
+    payloads: [2^26, 2^24, 2^24] segments, so K12 runs pair merges; the
+    (key, payload) pairs equal the input's."""
+    import torch
+
+    from libhpc_tpu_torch.ops import sort_merge_kv as kv
+
+    n = 100_000_000
+    g = torch.Generator(device=dev)
+    g.manual_seed(SORT_SEED + 2)
+    alphabet = torch.cat([
+        torch.tensor([0, 0x7FFFFFFF, -2**31, -1], dtype=torch.int32,
+                     device=dev),
+        torch.randint(-2**31, 2**31, (12,), dtype=torch.int32, device=dev,
+                      generator=g)])
+    keys = alphabet[torch.randint(0, 16, (n,), device=dev, generator=g)]
+    vals = torch.rand(n, device=dev, generator=g)
+    ku = keys.view(torch.uint32)
+    (ks, vs), rec, segs = kv_path(
+        "sort_kv_segmented", n, keys,
+        lambda: kv.merge_sort_kv_u32(ku, vals), launches,
+        [1 << 26, 1 << 24, 1 << 24])
+    if vs.dtype != torch.float32 or not torch.equal(u32_pairs(ks, vs),
+                                                    u32_pairs(keys, vals)):
+        raise AssertionError("sort_kv_segmented: (key, payload) pairs "
+                             "differ from the input's")
+    del ks, vs
+    emit({"phase": "sort_kv_segmented", "n": n, "segments": segs,
+          "alphabet": 16, "payload": "float32",
+          "pairs_equal_to_input": True, **launches["sort_kv_segmented"],
+          **rec})
+
+
+def kv_kernels_phase(dev, kernel_times, log2p: int = 26):
+    """K11 (2^13 chunks and the staged 2^15 chunk), K12 as a level and as
+    a pair, each exactly against its plain version (keys and payloads) on
+    the buffers of a 2^log2p-key sort of distinct keys, invert and unflip
+    cases included; device times by CUDA-graph replay."""
+    import torch
+
+    from libhpc_tpu_torch.ops import sort_merge_kv as kv
+
+    P = 1 << log2p
+    LB = P >> 2
+    g = torch.Generator(device=dev)
+    g.manual_seed(SORT_SEED + 3)
+    perm = torch.randperm(P + LB, device=dev, generator=g)
+    low = torch.randint(0, 32, (P + LB,), device=dev, generator=g)
+    # distinct 32-bit patterns spread over the whole range
+    keys = ((perm << 5) | low).to(torch.int32)
+    vals = torch.randint(-2**31, 2**31, (P + LB,), dtype=torch.int32,
+                         device=dev, generator=g)
+    del perm, low
+    x, v = keys[:P].contiguous(), vals[:P].contiguous()
+    PAD = 1 << kv.DEFAULT_LOG2W
+    rows = (2 * PAD + P + 16 * 128) // 128
+
+    def data(bufs, n=P):
+        return torch.cat([b.reshape(-1)[PAD:PAD + n] for b in bufs])
+
+    rec = {}
+    for case, kw in {"asc": dict(alternate=True, invert=False, unflip=False),
+                     "invert_unflip": dict(alternate=True, invert=True,
+                                           unflip=True)}.items():
+        for log2c, kind in ((kv.LOG2C_KERNEL, "sort_chunk_kv"),
+                            (kv.DEFAULT_LOG2C, "sort_chunk_kv_staged")):
+            rec[f"{kind}_2^{log2c}_{case}"] = hold_exact(
+                kind, f"2^{log2p}/{case}",
+                lambda: kv._chunk_sort_kv(x, v, PAD // 128, rows,
+                                          log2c=log2c, **kw),
+                lambda: kv._chunk_sort_kv_torch(x, v, PAD // 128, rows,
+                                                log2c=log2c, **kw),
+                data, kernel_times)
+
+    for log2r, inv, unf in ((kv.DEFAULT_LOG2C, False, False),
+                            (log2p - 1, True, True)):
+        bk, bv = kv._chunk_sort_kv_torch(x, v, PAD // 128, rows, log2c=log2r,
+                                         alternate=True, invert=False,
+                                         unflip=False)
+        lw = min(kv.DEFAULT_LOG2W, log2r)
+        rec[f"sort_merge_kv_level_r2^{log2r}"] = hold_exact(
+            "sort_merge_kv_level", f"2^{log2p}/r2^{log2r}",
+            lambda: kv._merge_level_kv(bk, bv, P, PAD, rows, log2r, lw, inv,
+                                       unf),
+            lambda: kv._merge_level_kv_torch(bk, bv, P, PAD, rows, log2r, lw,
+                                             inv, unf),
+            data, kernel_times)
+        del bk, bv
+
+    ak, av = kv._sort_segment_kv(x, v, kv.DEFAULT_LOG2C, kv.DEFAULT_LOG2W,
+                                 invert=False, unflip=False)
+    bk, bv = kv._sort_segment_kv(keys[P:].contiguous(), vals[P:].contiguous(),
+                                 kv.DEFAULT_LOG2C, kv.DEFAULT_LOG2W,
+                                 invert=True, unflip=False)
+    lw = min(kv.DEFAULT_LOG2W, log2p - 2)
+    for desc_out, unf in ((True, False), (False, True)):
+        rec[f"sort_merge_kv_pair_desc{int(desc_out)}"] = hold_exact(
+            "sort_merge_kv_pair",
+            f"2^{log2p}+2^{log2p - 2}/desc{int(desc_out)}",
+            lambda: kv._merge_pair_kv(ak, av, bk, bv, P, LB, PAD, lw,
+                                      desc_out, unf),
+            lambda: kv._merge_pair_kv_torch(ak, av, bk, bv, P, LB, PAD, lw,
+                                            desc_out, unf),
+            lambda b: data(b, P + LB), kernel_times)
+    del ak, av, bk, bv
+
+    flipped = keys ^ FLIP
+    for kind, case, row in (
+            ("sort_chunk_kv", f"2^{log2p}/asc", 1 << kv.LOG2C_KERNEL),
+            ("sort_merge_kv_level", f"2^{log2p}/r2^{kv.DEFAULT_LOG2C}",
+             2 << kv.DEFAULT_LOG2C)):
+        WORK[(kind, case)] = (16 * P, 0)
+        LIBRARY_MS[kind] = time_ms(
+            lambda r=row: torch.sort(flipped[:P].view(-1, r), dim=1), reps=5)
+    WORK[("sort_merge_kv_pair", f"2^{log2p}+2^{log2p - 2}/desc1")] = (
+        16 * (P + LB), 0)
+    LIBRARY_MS["sort_merge_kv_pair"] = time_ms(lambda: torch.sort(flipped),
+                                               reps=5)
+    del flipped, keys, vals, x, v
+    torch.cuda.synchronize()
+    emit({"phase": "kv_kernels", "P": P, "distinct_keys": True,
+          **{f"{k}_ms": r[0] for k, r in rec.items()},
+          **{f"{k}_plain_ms": r[1] for k, r in rec.items()},
+          "max_abs_err": max(r[2] for r in rec.values())})
+
+
+def scan_case(kind, case, x, kernel, plain, library, check, kernel_times):
+    """A scan kernel against its plain version (`check`), then device
+    times of kernel, plain version and library call (CUDA events: a few
+    long kernels each)."""
+    got, want = kernel(), plain()
+    err = check(got, want, f"{case}: {kind} kernel vs plain")
+    del got, want
+    kernel_times[kind][case] = (time_ms(kernel, reps=10),
+                                time_ms(plain, reps=5), err)
+    n = x.shape[0]
+    WORK[(kind, case)] = (8 * n, n if x.is_floating_point() else 0)
+    return kernel_times[kind][case] + (time_ms(library, reps=10),)
+
+
+def scan_phase(keys, dev, kernel_times, launches):
+    """K14 on 500M int32 flags (digit 0 of the sort's keys == 0), exactly
+    against its plain version and int64 cumsum, and on a wraparound case;
+    K13 on 500M seeded f32 in [0, 1) within TOL_SCAN of a float64 cumsum
+    and of its plain version; both again at 2^22 (the reference corpus's
+    size); times beside torch.cumsum and the byte bound."""
+    import torch
+
+    from libhpc_tpu_torch.ops import scan
+
+    n = keys.shape[0]
+    flags = ((keys & 255) == 0).to(torch.int32)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SORT_SEED + 4)
+    xf = torch.rand(n, device=dev, generator=g)
+    torch.cuda.synchronize()
+    scan.SCAN_INT_LAUNCHES = scan.SCAN_F32_LAUNCHES = 0
+    out_i = scan.exclusive_scan_pallas(flags)
+    out_f = scan.exclusive_scan_pallas(xf)
+    torch.cuda.synchronize()
+    launches["scan"] = {"scan_int": scan.SCAN_INT_LAUNCHES,
+                        "scan_f32": scan.SCAN_F32_LAUNCHES,
+                        "need": {"scan_int": 1, "scan_f32": 1}}
+    if not torch.equal(out_i.long(),
+                       torch.cumsum(flags, 0, dtype=torch.int64) - flags):
+        raise AssertionError("scan: K14 differs from int64 cumsum")
+    oracle = torch.cumsum(xf.double(), 0) - xf.double()
+    err_f = max_err(out_f.double(), oracle)
+    if not torch.allclose(out_f.double(), oracle, rtol=TOL_SCAN,
+                          atol=TOL_SCAN):
+        raise AssertionError(f"scan: K13 off the float64 oracle by {err_f}")
+    del out_i, out_f, oracle
+
+    def exact(got, want, what):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: {int((got != want).sum())} "
+                                 "differ")
+        return 0.0
+
+    def close(got, want, what):
+        if not torch.allclose(got, want, rtol=TOL_SCAN, atol=TOL_SCAN):
+            raise AssertionError(f"{what}: max |diff| {max_err(got, want)}")
+        return max_err(got, want)
+
+    rec = {}
+    wrap = torch.full((5_000_001,), 2**30, dtype=torch.int32, device=dev)
+    w = scan.exclusive_scan_pallas(wrap)
+    if (not torch.equal(w, scan._exclusive_scan_int_torch(wrap))
+            or w[:5].tolist() != [0, 2**30, -2**31, -2**30, 0]):
+        raise AssertionError("scan: K14 does not wrap as int32 adds do")
+    for size, fi, ff in ((n, flags, xf), (1 << 22, flags[:1 << 22].clone(),
+                                          xf[:1 << 22].clone())):
+        tag = "500M" if size == n else "2^22"
+        rec[f"int_{tag}"] = scan_case(
+            "scan_int", tag, fi, lambda fi=fi: scan._exclusive_scan_int(fi),
+            lambda fi=fi: scan._exclusive_scan_int_torch(fi),
+            lambda fi=fi: torch.cumsum(fi, 0, dtype=torch.int32), exact,
+            kernel_times)
+        rec[f"f32_{tag}"] = scan_case(
+            "scan_f32", tag, ff, lambda ff=ff: scan._exclusive_scan_f32(ff),
+            lambda ff=ff: scan._exclusive_scan_f32_torch(ff),
+            lambda ff=ff: torch.cumsum(ff, 0), close, kernel_times)
+    LIBRARY_MS["scan_int"] = rec["int_500M"][3]
+    LIBRARY_MS["scan_f32"] = rec["f32_500M"][3]
+    del flags, xf
+    torch.cuda.synchronize()
+    bound = {k: 8 * (n if k.endswith("500M") else 1 << 22) / PEAK_BYTES_S
+             * 1e3 for k in rec}
+    emit({"phase": "scan", "n": n, "k14_equal_to_int64_cumsum": True,
+          "k13_max_abs_err_vs_float64": err_f, "wraparound_ok": True,
+          **launches["scan"],
+          **{f"{k}_ms": r[0] for k, r in rec.items()},
+          **{f"{k}_plain_ms": r[1] for k, r in rec.items()},
+          **{f"{k}_max_abs_err_vs_plain": r[2] for k, r in rec.items()},
+          **{f"{k}_torch_cumsum_ms": r[3] for k, r in rec.items()},
+          **{f"{k}_bound_ms": b for k, b in bound.items()},
+          **{f"{k}_gb_per_s": 8 * (n if k.endswith("500M") else 1 << 22)
+             / (r[0] * 1e-3) / 1e9 for k, r in rec.items()}})
 
 
 def sort_split_phase(dev) -> None:
@@ -1009,7 +1412,11 @@ def sort_split_phase(dev) -> None:
     from libhpc_tpu_torch.ops import sort_merge as sm
 
     ku = sort_keys(500_000_000, dev).view(torch.uint32)
-    total, split = device_ms(lambda: sm.merge_sort_u32(ku), reps=1)
+    total, split = device_ms(lambda: sm.merge_sort_u32(ku), reps=1,
+                             want={"chunk_kernel": 1, "merge_kernel": 16})
+    complete = bool(total)
+    if not complete:    # keep what a lossy profile saw, marked as such
+        total, split = device_ms(lambda: sm.merge_sort_u32(ku), reps=1)
     if not total:
         raise AssertionError("sort_split: the profiler saw no device work")
     kernels = {"K8 chunk_kernel": 0.0, "K9 merge_kernel": 0.0}
@@ -1023,10 +1430,29 @@ def sort_split_phase(dev) -> None:
             short = name.split("<")[0].split("(")[0].replace("void ", "")
             torch_ops[short] = torch_ops.get(short, 0.0) + ms
     emit({"phase": "sort_split", "n": 500_000_000, "cupti_ms": total,
+          "records_complete": complete,
           **{f"{k}_ms": v for k, v in kernels.items()},
           "torch_ops_ms": sum(torch_ops.values()),
           "torch_ops_top_ms": dict(sorted(torch_ops.items(),
                                           key=lambda kv: -kv[1])[:4])})
+
+
+def library_phase(dev) -> None:
+    """One torch.sparse CSR matvec (cuSPARSE) of each SpMV kernel's matrix:
+    the library call computing the same product as K1-K7. Run after every
+    profile: in a run where cuSPARSE had been called, later profiles saw
+    no device work."""
+    from libhpc_tpu_torch.bench import matrices
+
+    t = {"cant_like": csr_library_ms(matrices.load_or_synthesize("cant"),
+                                     dev),
+         "poisson3072": csr_library_ms(matrices.poisson2d(3072), dev),
+         "poisson1024": csr_library_ms(matrices.poisson2d(1024), dev)}
+    LIBRARY_MS["near"] = LIBRARY_MS["far"] = t["cant_like"]
+    LIBRARY_MS["dia"] = LIBRARY_MS["dia_probe"] = t["poisson3072"]
+    LIBRARY_MS["sell"] = LIBRARY_MS["sellp"] = t["poisson1024"]
+    emit({"phase": "library", **{f"torch_sparse_csr_mv_{k}_ms": v
+                                 for k, v in t.items()}})
 
 
 def check_launches(near: int, far: int, matvecs: int) -> None:
@@ -1055,22 +1481,24 @@ def check_family_launches(launches: dict) -> None:
 
 
 def run(dev):
-    """Phases 1-17 on `dev`; returns the {"kernels": [...]} record."""
+    """Phases 1-22 on `dev`; returns the {"kernels": [...]} record."""
     import torch
 
     from libhpc_tpu_torch.bench import matrices
     from libhpc_tpu_torch.ops import far_sbell, spmv_sbell
     from libhpc_tpu_torch.sparse.sbell import SBELL
 
-    kernel_times = {"near": {}, "far": {}, "dia": {}, "dia_probe": {},
-                    "sell": {}, "sellp": {}, "sort_chunk": {},
-                    "sort_chunk_staged": {}, "sort_merge_level": {},
-                    "sort_merge_pair": {}, "histogram": {}}
+    kernel_times = {k: {} for k in (
+        "near", "far", "dia", "dia_probe", "sell", "sellp", "sort_chunk",
+        "sort_chunk_staged", "sort_merge_level", "sort_merge_pair",
+        "histogram", "sort_chunk_kv", "sort_chunk_kv_staged",
+        "sort_merge_kv_level", "sort_merge_kv_pair", "scan_int",
+        "scan_f32")}
     sb_cant = A_cant = None
     for name in ("cant", "pwtk"):
         t0 = time.perf_counter()
         A = matrices.load_or_synthesize(name)
-        sb = SBELL.from_scipy(A)
+        sb = SBELL.from_scipy(A, device=dev)
         emit({"phase": "build", "matrix": name,
               "host_build_s": time.perf_counter() - t0})
         sbd = spmv_phase(name, A, sb, dev, kernel_times)
@@ -1106,9 +1534,14 @@ def run(dev):
     sort_kernels_phase(keys, kernel_times)
     radix_phase(dev)
     histogram_phase(keys, kernel_times, family)
+    argsort_phase(keys, family)
+    sort_kv_segmented_phase(dev, family)
+    kv_kernels_phase(dev, kernel_times)
+    scan_phase(keys, dev, kernel_times, family)
     del keys
     check_family_launches(family)
     sort_split_phase(dev)
+    library_phase(dev)
     emit({"phase": "launches", "near": near, "far": far,
           "matvecs": matvecs, **family})
     torch.cuda.synchronize()
@@ -1116,16 +1549,27 @@ def run(dev):
     def entry(kind, name, source, replaces, launches, cases):
         ms = sum(kernel_times[kind][c][0] for c in cases)
         plain_ms = sum(kernel_times[kind][c][1] for c in cases)
+        moved = sum(WORK[(kind, c)][0] for c in cases)
+        ops = sum(WORK[(kind, c)][1] for c in cases)
+        t_bytes = moved / PEAK_BYTES_S * 1e3
+        t_ops = ops / PEAK_F32_OPS_S * 1e3
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(e for _, _, e in
                                    kernel_times[kind].values()),
-                "ms": ms, "plain_ms": plain_ms}
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": LIBRARY_MS.get(kind)}
 
     near_src = "libhpc_tpu_torch/csrc/sbell_near.cu"
     merge_src = "libhpc_tpu_torch/csrc/sort_merge.cu"
     sort_paths = {k: family["sort"][k] + family["sort_segmented"][k]
                   for k in ("chunk", "merge", "pair")}
+    kv_paths = {k: family["argsort"][k] + family["sort_kv_segmented"][k]
+                for k in ("chunk", "merge", "pair")}
+    chunk_src = "libhpc_tpu_torch/csrc/sort_chunk.cu"
+    scan_src = "libhpc_tpu_torch/csrc/scan.cu"
     dia_src = "libhpc_tpu_torch/csrc/dia.cu"
     cant = ["cant/float32"]
     return {"kernels": [
@@ -1162,6 +1606,19 @@ def run(dev):
         entry("histogram", "histogram", "libhpc_tpu_torch/csrc/histogram.cu",
               "libhpc_tpu/ops/histogram.py:59",
               family["histogram"]["hist"], ["plane0"]),
+        entry("sort_chunk_kv", "sort_chunk_kv", chunk_src,
+              "libhpc_tpu/ops/sort_pallas_kv.py:87", kv_paths["chunk"],
+              ["2^26/asc"]),
+        entry("sort_merge_kv_level", "sort_merge_kv_level", merge_src,
+              "libhpc_tpu/ops/sort_pallas_kv.py:143",
+              kv_paths["merge"] - kv_paths["pair"], ["2^26/r2^15"]),
+        entry("sort_merge_kv_pair", "sort_merge_kv_pair", merge_src,
+              "libhpc_tpu/ops/sort_pallas_kv.py:143", kv_paths["pair"],
+              ["2^26+2^24/desc1"]),
+        entry("scan_f32", "scan_f32", scan_src, "libhpc_tpu/ops/scan.py:52",
+              family["scan"]["scan_f32"], ["500M"]),
+        entry("scan_int", "scan_int", scan_src, "libhpc_tpu/ops/scan.py:106",
+              family["scan"]["scan_int"], ["500M"]),
     ]}
 
 

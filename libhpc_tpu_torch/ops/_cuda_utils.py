@@ -14,6 +14,7 @@ what a Hopper kernel needs around it:
 - ``check_launch``: raises when an entry point returns a CUDA error.
 - ``check_tensor``: the device/dtype/shape/contiguity checker every wrapper
   runs before it hands pointers to a kernel.
+- ``as_tensor``: how an entry point takes numpy input (to ``device``).
 
 Dispatch rule of every wrapper: tensors on the CPU take the plain PyTorch
 version; CUDA tensors launch the kernel or raise. Nothing falls back.
@@ -28,6 +29,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -170,6 +172,14 @@ def check_tensor(t, name: str, device: torch.device, dtypes, shape) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def as_tensor(x, device) -> torch.Tensor:
+    """A numpy array moved to ``device`` (an entry point's default is
+    "cuda"); a torch tensor as it is, on its own device."""
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    return x
 
 
 def kernel_device(*tensors: torch.Tensor) -> torch.device:

@@ -93,8 +93,9 @@ class SELLP(TensorLeaves):
         return self.n_tiles * PANE / max(nnz, 1)
 
 
-def sellp_from_scipy(A, tpb: int = None) -> SELLP:
-    """Host-side SELL-P build from any scipy.sparse matrix.
+def sellp_from_scipy(A, tpb: int = None, device="cuda") -> SELLP:
+    """Host-side SELL-P build from any scipy.sparse matrix; the leaves move
+    to ``device`` once at the end.
 
     Per stripe: entries keyed by (target pane, target sublane jp,
     per-position multiplicity); each (key, output-sublane) group is one
@@ -193,7 +194,7 @@ def sellp_from_scipy(A, tpb: int = None) -> SELLP:
     return SELLP(vflat=_t(vflat.reshape(n_pad * B, LANE)),
                  lidx=_t(lflat.reshape(n_pad * B, LANE)),
                  pane=_t(pane_f), sid=_t(sid_f), shape=(m, n),
-                 n_stripes=n_stripes, n_panes=n_panes, tpb=tpb)
+                 n_stripes=n_stripes, n_panes=n_panes, tpb=tpb).to(device)
 
 
 def sellp_out_panes_torch(sp: SELLP, x3: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,10 @@ is taken in the sign-flipped domain (``x ^ 0x80000000`` orders as int32
 exactly as x orders as u32), digits are taken in int64 (a logical shift),
 and results come back as ``torch.uint32`` views (``as_u32``), as the
 reference returns uint32. Inputs may be torch tensors of any integer dtype
-(taken mod 2^32, as the reference's ``astype(uint32)``) or numpy arrays.
+(taken mod 2^32, as the reference's ``astype(uint32)``) or numpy arrays. A
+torch tensor is sorted on its own device; a numpy array is moved to
+``device`` (default ``"cuda"``, as the reference's arrays land on its
+accelerator), so ``device="cpu"`` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from libhpc_tpu_torch.ops._cuda_utils import cdiv
+from libhpc_tpu_torch.ops._cuda_utils import as_tensor, cdiv
 from libhpc_tpu_torch.ops.histogram import local_histogram
 
 TILE = 2048  # elements per tile in the pipeline variant
@@ -39,11 +42,13 @@ U32_MAX_BITS = -1          # 0xFFFFFFFF as an int32 bit pattern
 RANK_BATCH_ELEMS = 1 << 24  # one-hot elements per batch of tiles
 
 
-def u32_bits(x) -> torch.Tensor:
-    """The u32 value of each element of x, as an int32 bit pattern."""
+def u32_bits(x, device="cuda") -> torch.Tensor:
+    """The u32 value of each element of x, as an int32 bit pattern; a numpy
+    x is moved to ``device``, a tensor stays where it is."""
     if isinstance(x, np.ndarray):
         return torch.from_numpy(
-            np.ascontiguousarray(x).astype(np.uint32).view(np.int32))
+            np.ascontiguousarray(x).astype(np.uint32).view(np.int32)
+        ).to(device)
     if x.dtype == torch.uint32:
         return x.view(torch.int32)
     if x.dtype == torch.int32:
@@ -56,9 +61,9 @@ def as_u32(bits: torch.Tensor) -> torch.Tensor:
     return bits.view(torch.uint32)
 
 
-def sort_u32(x) -> torch.Tensor:
+def sort_u32(x, *, device="cuda") -> torch.Tensor:
     """Sort uint32 ascending — production path (torch.sort)."""
-    s = torch.sort(u32_bits(x) ^ FLIP).values
+    s = torch.sort(u32_bits(x, device) ^ FLIP).values
     return as_u32(s ^ FLIP)
 
 
@@ -66,20 +71,19 @@ def sort_u32(x) -> torch.Tensor:
 radix_sort = sort_u32
 
 
-def argsort_u32(x):
+def argsort_u32(x, *, device="cuda"):
     """Stable ascending argsort; returns (sorted uint32, int32 order)."""
-    s, order = torch.sort(u32_bits(x) ^ FLIP, stable=True)
+    s, order = torch.sort(u32_bits(x, device) ^ FLIP, stable=True)
     return as_u32(s ^ FLIP), order.to(torch.int32)
 
 
-def is_sorted(x) -> torch.Tensor:
+def is_sorted(x, *, device="cuda") -> torch.Tensor:
     """0-d bool tensor: x is non-decreasing (uint32 compared as u32)."""
-    if isinstance(x, np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(x))
+    x = as_tensor(x, device)
     if x.dtype == torch.uint32:
         x = x.view(torch.int32) ^ FLIP
     if x.shape[0] <= 1:
-        return torch.tensor(True)
+        return torch.tensor(True, device=x.device)
     return torch.all(x[1:] >= x[:-1])
 
 
@@ -88,11 +92,12 @@ def is_sorted(x) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def digit_of(x, shift, bits_per_pass: int = 8) -> torch.Tensor:
+def digit_of(x, shift, bits_per_pass: int = 8, *,
+             device="cuda") -> torch.Tensor:
     """Extract the radix digit — stage 0 of the pipeline. A logical shift
     of the u32 value (in int64), so digits reaching bit 31 are right."""
     mask = (1 << bits_per_pass) - 1
-    v = u32_bits(x).to(torch.int64) & 0xFFFFFFFF
+    v = u32_bits(x, device).to(torch.int64) & 0xFFFFFFFF
     return ((v >> int(shift)) & mask).to(torch.int32)
 
 
@@ -141,8 +146,8 @@ def _rank_within_tiles(digits: torch.Tensor, n_bins: int = 256,
     return ranks.reshape(-1)[:n]
 
 
-def radix_sort_pipeline(x, bits_per_pass: int = 8,
-                        tile: int = TILE) -> torch.Tensor:
+def radix_sort_pipeline(x, bits_per_pass: int = 8, tile: int = TILE, *,
+                        device="cuda") -> torch.Tensor:
     """Full multi-pass LSD radix sort via the explicit pipeline.
 
     Per pass (SURVEY.md §3.2's count→scan→scatter skeleton):
@@ -154,7 +159,7 @@ def radix_sort_pipeline(x, bits_per_pass: int = 8,
       6. pos[i]        = base[digit] + offs[tile][digit] + rank[i]
       7. scatter       = out[pos] = x
     """
-    x = u32_bits(x)
+    x = u32_bits(x, device)
     n = x.shape[0]
     if n <= 1:
         return as_u32(x)
@@ -181,14 +186,14 @@ def radix_sort_pipeline(x, bits_per_pass: int = 8,
 # ---------------------------------------------------------------------------
 
 
-def bitonic_sort(x) -> torch.Tensor:
+def bitonic_sort(x, *, device="cuda") -> torch.Tensor:
     """Full bitonic sort network in vectorized torch ops.
 
     Every compare-exchange stage at distance d is a reshape to
     (n/2d, 2, d) + min/max + direction select; log²(n)/2 stages. Pads to a
     power of two with UINT32_MAX; compares in the sign-flipped domain.
     """
-    x = u32_bits(x)
+    x = u32_bits(x, device)
     n = x.shape[0]
     if n <= 1:
         return as_u32(x)

@@ -181,7 +181,13 @@ def _level_scalars(buf, P: int, PAD: int, log2r: int, log2w: int,
 
     Runs of R=2^log2r alternate asc/desc; output runs of 2R likewise.
     Returns per-window scalars for the kernel: A/B window start rows +
-    in-row remainders, invalid-candidate counts, desc flag."""
+    in-row remainders, invalid-candidate counts, desc flag.
+
+    The search runs a fixed log2r + 1 steps, as the reference's does; with
+    ties at a run's maximum the reference's can end one past the A run
+    (ROADMAP Queue 3). Here the split is clamped into the searched range:
+    the same keys come out either way, but a step past would repeat one
+    payload and drop another in the key-value sort."""
     R = 1 << log2r
     W = 1 << log2w
     nw = P // W
@@ -195,7 +201,7 @@ def _level_scalars(buf, P: int, PAD: int, log2r: int, log2w: int,
     desc = ((pair & 1) == 1) != invert
 
     lo = torch.clamp(o - R, min=0)
-    hi = torch.clamp(o, max=R)
+    hi = hi0 = torch.clamp(o, max=R)
     for _ in range(log2r + 1):
         mid = (lo + hi) >> 1
         kb = o - 1 - mid
@@ -208,7 +214,7 @@ def _level_scalars(buf, P: int, PAD: int, log2r: int, log2w: int,
         vb = flat[PAD + ib]
         pred = (kb >= 0) & torch.where(desc, va >= vb, va <= vb)
         lo, hi = torch.where(pred, mid + 1, lo), torch.where(pred, hi, mid)
-    split = lo
+    split = torch.minimum(lo, hi0)
     rho = o - split
 
     sA = torch.where(desc, base + R - split - W, base + split) + PAD
@@ -222,7 +228,8 @@ def _pair_scalars(bufA, bufB, LA: int, LB: int, PAD: int, log2w: int,
                   desc_out: bool):
     """Merge-path splits for one merge of A (ascending, length LA) with B
     (descending storage, length LB) — the unequal-run generalization of
-    _level_scalars. Output direction desc_out (uniform for the call)."""
+    _level_scalars (its split clamped the same way). Output direction
+    desc_out (uniform for the call)."""
     W = 1 << log2w
     nw = (LA + LB) // W
     fA = bufA.reshape(-1)
@@ -230,7 +237,7 @@ def _pair_scalars(bufA, bufB, LA: int, LB: int, PAD: int, log2w: int,
 
     o = torch.arange(nw, dtype=torch.int64, device=bufA.device) * W
     lo = torch.clamp(o - LB, min=0)
-    hi = torch.clamp(o, max=LA)
+    hi = hi0 = torch.clamp(o, max=LA)
     for _ in range(min(LA, LB).bit_length() + 1):
         mid = (lo + hi) >> 1
         kb = o - 1 - mid
@@ -246,7 +253,7 @@ def _pair_scalars(bufA, bufB, LA: int, LB: int, PAD: int, log2w: int,
             vb = fB[PAD + LB - 1 - kbc]
             pred = (kb >= 0) & (va <= vb)
         lo, hi = torch.where(pred, mid + 1, lo), torch.where(pred, hi, mid)
-    split = lo
+    split = torch.minimum(lo, hi0)
     rho = o - split
     if desc_out:
         sA = LA - split - W
@@ -424,7 +431,8 @@ def _decompose(n: int, C: int, max_segs: int = 3):
 
 
 def merge_sort_u32(x, log2c: int = DEFAULT_LOG2C,
-                   log2w: int = DEFAULT_LOG2W) -> torch.Tensor:
+                   log2w: int = DEFAULT_LOG2W, *,
+                   device="cuda") -> torch.Tensor:
     """Sort uint32 ascending — chunk sort + merge-path levels.
 
     Arbitrary n: the input is decomposed into <=3 power-of-two segments
@@ -432,9 +440,9 @@ def merge_sort_u32(x, log2c: int = DEFAULT_LOG2C,
     folded with unequal-pair merge-path merges. log2c/log2w are the
     reference's tuning knobs (tests shrink them to exercise multi-level
     merges at small sizes). Returns a torch.uint32 tensor on x's device
-    (numpy input is sorted on the CPU).
+    (numpy input is moved to ``device`` first).
     """
-    xi = u32_bits(x)
+    xi = u32_bits(x, device)
     n = xi.shape[0]
     if n <= 1:
         return as_u32(xi)

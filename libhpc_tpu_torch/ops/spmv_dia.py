@@ -68,8 +68,9 @@ class DiaPallas(TensorLeaves):
                 + self.n_tiles * self.span_pad * 4)
 
     @staticmethod
-    def from_dia(dia, T: int = 1 << 17) -> "DiaPallas":
-        """Host-side tiling of a DIA container (sparse/dia.py)."""
+    def from_dia(dia, T: int = 1 << 17, device="cuda") -> "DiaPallas":
+        """Host-side tiling of a DIA container (sparse/dia.py) on any
+        device; the leaves move to ``device`` once at the end."""
         data = tensor_to_numpy(dia.data).astype(np.float32)
         offs = [int(o) for o in dia.offsets]
         m, n = dia.shape
@@ -95,7 +96,7 @@ class DiaPallas(TensorLeaves):
         return DiaPallas(
             dflat=torch.from_numpy(dflat.reshape(n_tiles * D * Tr, LANE)),
             x_pad_lo=P, coffs=coffs, shape=(m, n), T=T,
-            span_pad=span_pad)
+            span_pad=span_pad).to(device)
 
 
 def x_ext_len(dp: DiaPallas) -> int:

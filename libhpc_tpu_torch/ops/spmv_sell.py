@@ -130,8 +130,9 @@ class SELLSplit(TensorLeaves):
                 + self.n_panes * PANE * 4 + self.n_stripes * PANE * 4)
 
 
-def sell_from_ell(ell, W: int = W_DEFAULT):
-    """Host-side SELL build from an ELL container (sparse/ell.py).
+def sell_from_ell(ell, W: int = W_DEFAULT, device="cuda"):
+    """Host-side SELL build from an ELL container (sparse/ell.py), on any
+    device; the leaves move to ``device`` once at the end.
 
     Zero-valued slots are treated as padding (their column is rewritten
     to the window base — the product is zero either way). All-zero
@@ -196,20 +197,21 @@ def sell_from_ell(ell, W: int = W_DEFAULT):
     wide = groups.get(2)
     if near and wide and len(near[0]) >= TPB:
         # span split: single-pane tiles run a W=1 call of their own
-        return SELLSplit(near=_pack(near[:4], 1),
-                         wide=_pack(wide[:4], wide[4][0]),
-                         shape=(m, n))
-    if near and wide:          # too few near tiles to pay a second call
+        built = SELLSplit(near=_pack(near[:4], 1),
+                          wide=_pack(wide[:4], wide[4][0]), shape=(m, n))
+    elif near and wide:        # too few near tiles to pay a second call
         merged = tuple(a + b for a, b in zip(near[:4], wide[:4]))
-        return _pack(merged, wide[4][0])
-    g = near or wide or ([], [], [], [], [1])
-    return _pack(g[:4], g[4][0])
+        built = _pack(merged, wide[4][0])
+    else:
+        g = near or wide or ([], [], [], [], [1])
+        built = _pack(g[:4], g[4][0])
+    return built.to(device)
 
 
-def sell_from_scipy(A, W: int = W_DEFAULT):
+def sell_from_scipy(A, W: int = W_DEFAULT, device="cuda"):
     from libhpc_tpu_torch.sparse.ell import ELL
 
-    return sell_from_ell(ELL.from_scipy(A), W=W)
+    return sell_from_ell(ELL.from_scipy(A, device="cpu"), W=W, device=device)
 
 
 def sell_out_panes_torch(sp: SELL, x3: torch.Tensor) -> torch.Tensor:

@@ -14,8 +14,8 @@ same scipy matrix gets the same container class with the same fields.
 
 The thresholds (``_DIA_VMEM_BYTES``, ``_DIA_MAX_OFFSETS``, the fill limits)
 were measured on the reference's TPU; H100 thresholds wait for the port's
-bench numbers. Containers come back on the CPU: move them with
-``.to("cuda")`` before the matvec.
+bench numbers. The container is built on the host and comes back on
+``device`` (default ``"cuda"``); ``device="cpu"`` keeps it on the CPU.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ _DIA_VMEM_BYTES = 100 * 1024 * 1024
 _DIA_MAX_OFFSETS = 96          # matches ops/spmv.py MAX_DIA_OFFSETS
 
 
-def auto_format(A, prefer_bf16: bool = False):
+def auto_format(A, prefer_bf16: bool = False, device="cuda"):
     """Pick a container + matvec for a scipy sparse matrix.
 
     Returns (container, matvec) where matvec(container, x) -> y and the
@@ -48,15 +48,15 @@ def auto_format(A, prefer_bf16: bool = False):
     if diags.size <= _DIA_MAX_OFFSETS and dia_fill_ok:
         from libhpc_tpu_torch.sparse.dia import DIA
 
-        dia = DIA.from_scipy(A)
+        dia = DIA.from_scipy(A, device="cpu")
         work = dia.data.numel() * 4 + (m + n) * 4
         if work <= _DIA_VMEM_BYTES:
             from libhpc_tpu_torch.ops.spmv import dia_spmv
 
-            return dia, dia_spmv
-        from libhpc_tpu_torch.ops.spmv_dia import dia_spmv_pallas
+            return dia.to(device), dia_spmv
+        from libhpc_tpu_torch.ops.spmv_dia import DiaPallas, dia_spmv_pallas
 
-        return dia.to_pallas(), dia_spmv_pallas
+        return DiaPallas.from_dia(dia, device=device), dia_spmv_pallas
 
     # --- 8x8-block-dense (FEM-class)? SBELL. Block fill is estimated from
     # coordinates (unique touched 8x8 blocks), never by densifying to BSR
@@ -78,9 +78,9 @@ def auto_format(A, prefer_bf16: bool = False):
         if est_fill <= 4.0:
             from libhpc_tpu_torch.ops.sellp import sellp_from_scipy, sellp_spmv
 
-            sp = sellp_from_scipy(A)
+            sp = sellp_from_scipy(A, device="cpu")
             if sp.fill_ratio(A.nnz) <= 4.0:
-                return sp, sellp_spmv
+                return sp.to(device), sellp_spmv
         # SELL-P fragments when entries don't align on (pane, sublane)
         # buckets; the window SELL packs those densely
         from libhpc_tpu_torch.ops import spmv_sell
@@ -89,7 +89,7 @@ def auto_format(A, prefer_bf16: bool = False):
         k = int(lens.max()) if lens.size else 0
         if k and k * m <= 4 * max(A.nnz, 1):
             try:
-                sell = spmv_sell.sell_from_scipy(A)
+                sell = spmv_sell.sell_from_scipy(A, device=device)
             except ValueError:
                 pass    # windows too wide -> SBELL
             else:
@@ -99,9 +99,9 @@ def auto_format(A, prefer_bf16: bool = False):
     from libhpc_tpu_torch.ops.spmv_sbell import sbell_spmv
     from libhpc_tpu_torch.sparse.sbell import SBELL
 
-    sb = SBELL.from_scipy(A)
+    sb = SBELL.from_scipy(A, device="cpu")
     if prefer_bf16:
         import torch
 
         sb = sb.astype_values(torch.bfloat16)
-    return sb, sbell_spmv
+    return sb.to(device), sbell_spmv

@@ -2,7 +2,9 @@
 
 Port of ``libhpc_tpu/sparse/csr.py:CSR``: the interchange container of the
 main path's CSR half, with int32 indices and scipy bridges for oracle
-testing, and ``to_ell``. ``from_coo``, ``tocoo`` and ``to_bsr`` come with
+testing, and ``to_ell``. The builders build on the host and move the
+leaves to ``device`` (default ``"cuda"``) once at the end; ``device="cpu"``
+keeps them on the CPU. ``from_coo``, ``tocoo`` and ``to_bsr`` come with
 the slices that port COO and BSR.
 """
 
@@ -41,7 +43,8 @@ class CSR(TensorLeaves):
     # -- construction ------------------------------------------------------
 
     @staticmethod
-    def from_scipy(sp) -> "CSR":
+    def from_scipy(sp, device="cuda") -> "CSR":
+        """Build on the host, then move the leaves to ``device`` once."""
         sp = sp.tocsr()
         sp.sort_indices()
         return CSR(
@@ -49,7 +52,7 @@ class CSR(TensorLeaves):
             indices=tensor_from_numpy(sp.indices.astype(np.int32)),
             indptr=tensor_from_numpy(sp.indptr.astype(np.int32)),
             shape=tuple(sp.shape),
-        )
+        ).to(device)
 
     def to_scipy(self):
         import scipy.sparse as sps
@@ -60,10 +63,10 @@ class CSR(TensorLeaves):
             shape=self.shape)
 
     @staticmethod
-    def from_dense(mat) -> "CSR":
+    def from_dense(mat, device="cuda") -> "CSR":
         import scipy.sparse as sps
 
-        return CSR.from_scipy(sps.csr_matrix(np.asarray(mat)))
+        return CSR.from_scipy(sps.csr_matrix(np.asarray(mat)), device=device)
 
     # -- derived index structures -----------------------------------------
 

@@ -6,7 +6,8 @@ multiply-adds: no index arrays, no gather.
 
 Storage follows scipy.sparse.dia_matrix: data[d, j] holds A[j - offset[d], j]
 (column-aligned diagonals). Offsets are static fields. ``data`` keeps
-scipy's dtype.
+scipy's dtype. ``from_scipy`` builds on the host and moves the leaves to
+``device`` (default ``"cuda"``) once.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ class DIA(TensorLeaves):
         return self.data.dtype
 
     @staticmethod
-    def from_scipy(sp) -> "DIA":
+    def from_scipy(sp, device="cuda") -> "DIA":
+        """Build on the host, then move the leaves to ``device`` once."""
         d = sp.todia()
         data = np.asarray(d.data)
         ncols = d.shape[1]
@@ -51,18 +53,20 @@ class DIA(TensorLeaves):
             data=tensor_from_numpy(data),
             offsets=tuple(int(o) for o in d.offsets),
             shape=d.shape,
-        )
+        ).to(device)
 
     @staticmethod
     def from_csr(csr) -> "DIA":
-        return DIA.from_scipy(csr.to_scipy())
+        """On the device the CSR lies on."""
+        return DIA.from_scipy(csr.to_scipy(), device=csr.device)
 
     def to_pallas(self, T: int = 1 << 17):
         """Tile for the streaming DIA kernel (ops/spmv_dia.py), the
-        reference's path once the working set passes its threshold."""
+        reference's path once the working set passes its threshold; on
+        the device this DIA lies on."""
         from libhpc_tpu_torch.ops.spmv_dia import DiaPallas
 
-        return DiaPallas.from_dia(self, T=T)
+        return DiaPallas.from_dia(self, T=T, device=self.device)
 
     def to_scipy(self):
         import scipy.sparse as sps

@@ -39,8 +39,8 @@ class ELL(TensorLeaves):
     @staticmethod
     def from_csr(csr, max_nnz_per_row: int | None = None,
                  pad_multiple: int = 8) -> "ELL":
-        """Pack CSR into ELL on the host in numpy. k is rounded up to
-        ``pad_multiple``."""
+        """Pack CSR into ELL on the host in numpy, on the device the CSR
+        lies on. k is rounded up to ``pad_multiple``."""
         indptr = _np(csr.indptr)
         indices = _np(csr.indices)
         data = _np(csr.data)
@@ -60,7 +60,7 @@ class ELL(TensorLeaves):
                 vals=tensor_from_numpy(np.zeros((nrows, k), data.dtype)),
                 cols=tensor_from_numpy(np.zeros((nrows, k), np.int32)),
                 shape=csr.shape,
-            )
+            ).to(csr.device)
         slot = np.arange(k, dtype=np.int64)[None, :]
         src = indptr[:-1, None].astype(np.int64) + slot
         valid = slot < lengths[:, None]
@@ -68,13 +68,15 @@ class ELL(TensorLeaves):
         cols = np.where(valid, indices[src], 0).astype(np.int32)
         vals = np.where(valid, data[src], 0).astype(data.dtype)
         return ELL(vals=tensor_from_numpy(vals), cols=tensor_from_numpy(cols),
-                   shape=csr.shape)
+                   shape=csr.shape).to(csr.device)
 
     @staticmethod
-    def from_scipy(sp, pad_multiple: int = 8) -> "ELL":
+    def from_scipy(sp, pad_multiple: int = 8, device="cuda") -> "ELL":
+        """Build on the host, then move the leaves to ``device`` once."""
         from libhpc_tpu_torch.sparse.csr import CSR
 
-        return ELL.from_csr(CSR.from_scipy(sp), pad_multiple=pad_multiple)
+        return ELL.from_csr(CSR.from_scipy(sp, device="cpu"),
+                            pad_multiple=pad_multiple).to(device)
 
     def todense(self) -> torch.Tensor:
         out = torch.zeros(self.shape, dtype=self.vals.dtype,

@@ -280,9 +280,10 @@ class SBELL(TensorLeaves):
         return self.far.n_far / max(self.far.n_far + self.n_tiles * LANE, 1)
 
     @staticmethod
-    def from_scipy(A, group_far: bool = True,
-                   tpb: int | None = None) -> "SBELL":
-        """Host-side construction from any scipy.sparse matrix.
+    def from_scipy(A, group_far: bool = True, tpb: int | None = None,
+                   device="cuda") -> "SBELL":
+        """Host-side construction from any scipy.sparse matrix; the leaves
+        move to ``device`` once at the end.
 
         group_far=False keeps the far set as flat FarBlocks. tpb overrides
         the tile-stream padding multiple (default TPB)."""
@@ -394,4 +395,4 @@ class SBELL(TensorLeaves):
             n_stripes=n_stripes,
             n_panes=n_panes,
             tpb=tpb,
-        )
+        ).to(device)

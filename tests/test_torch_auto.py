@@ -92,7 +92,7 @@ def test_auto_same_container(name):
     make, kind = MATRICES[name]
     A = make()
     ref, _ = ref_auto.auto_format(A)
-    port, mv = auto.auto_format(A)
+    port, mv = auto.auto_format(A, device="cpu")
     assert type(ref).__name__ == kind
     assert_same_container(port, ref)
     assert port.device == torch.device("cpu")
@@ -104,7 +104,8 @@ def test_auto_same_container(name):
 
 def test_auto_poisson_dia_matvec_matches_reference():
     A = matrices.poisson2d(64)
-    (ref, ref_mv), (port, mv) = ref_auto.auto_format(A), auto.auto_format(A)
+    ref, ref_mv = ref_auto.auto_format(A)
+    port, mv = auto.auto_format(A, device="cpu")
     x = _x(A.shape[1])
     np.testing.assert_allclose(mv(port, torch.from_numpy(x)).numpy(),
                                np.asarray(ref_mv(ref, jnp.asarray(x))),
@@ -118,7 +119,7 @@ def test_auto_dia_pallas_route(monkeypatch):
     monkeypatch.setattr(auto, "_DIA_VMEM_BYTES", 1024)
     A = matrices.poisson2d(96)
     ref, ref_mv = ref_auto.auto_format(A)
-    port, mv = auto.auto_format(A)
+    port, mv = auto.auto_format(A, device="cpu")
     assert type(ref).__name__ == type(port).__name__ == "DiaPallas"
     assert port.T == 1 << 17
     assert_same_container(port, ref)
@@ -133,7 +134,7 @@ def test_auto_bf16():
     A = matrices.block_random(150, block=8, blocks_per_row=5, seed=3,
                               half_band=4)
     ref, _ = ref_auto.auto_format(A, prefer_bf16=True)
-    port, mv = auto.auto_format(A, prefer_bf16=True)
+    port, mv = auto.auto_format(A, prefer_bf16=True, device="cpu")
     assert port.vflat.dtype == torch.bfloat16
     assert_same_container(port, ref)
     x = _x(A.shape[1])

@@ -154,7 +154,7 @@ def test_cg_panes_on_card_matches_cpu(cuda_device):
     rowsum = np.asarray(np.abs(As).sum(axis=1)).ravel()
     A = (As + sps.diags(rowsum + 1.0)).tocsr().astype(np.float32)
     n = A.shape[0]
-    sb = SBELL.from_scipy(A)
+    sb = SBELL.from_scipy(A, device="cpu")
     b = np.zeros(sb.n_panes * 1024, np.float32)
     b[:n] = 1.0
     out = {}
@@ -553,3 +553,247 @@ def test_sort_wrappers_raise_on_bad_input(cuda_device):
         hist.histogram_pallas(x, (1 << 15) + 1)
     with pytest.raises(ValueError):
         hist.histogram_pallas(x.reshape(64, 64)[:, :8], 256)
+
+
+# ---- key-value sort (K11, K12) and scans (K13, K14) -------------------------
+
+
+def _pairs(keys, vals):
+    """(key, payload) pairs packed into int64 and sorted: equal for two
+    results of an unstable sort that moved every payload with its key."""
+    k = keys.reshape(-1).view(torch.int32).long() & 0xFFFFFFFF
+    v = vals.reshape(-1).view(torch.int32).long() & 0xFFFFFFFF
+    return torch.sort((k << 32) | v).values
+
+
+@pytest.mark.parametrize("alternate,invert,unflip", [
+    (True, False, False), (True, True, True), (False, True, False),
+    (False, False, True)])
+@pytest.mark.parametrize("log2c,n_chunks", [(1, 6), (7, 3), (12, 5),
+                                            (13, 2), (13, 1)])
+def test_chunk_kv_kernel_matches_plain(cuda_device, log2c, n_chunks,
+                                       alternate, invert, unflip):
+    """K11 on distinct keys: keys and payloads exactly as the stable plain
+    version."""
+    from libhpc_tpu_torch.ops import sort_merge_kv as kv
+
+    P = n_chunks << log2c
+    x = torch.randperm(1 << 20, device=cuda_device)[:P].to(torch.int32) - 7
+    v = _keys(P, seed=log2c, dev=cuda_device)
+    rows = 3 + -(-P // 128) + 2
+    kw = dict(log2c=log2c, alternate=alternate, invert=invert, unflip=unflip)
+    n0 = kv.CHUNK_LAUNCHES
+    gk, gv = kv.chunk_sort_kv_kernel(x, v, 3, rows, **kw)
+    assert kv.CHUNK_LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    wk, wv = kv._chunk_sort_kv_torch(x, v, 3, rows, **kw)
+    assert torch.equal(_region(gk, 384, P), _region(wk, 384, P))
+    assert torch.equal(_region(gv, 384, P), _region(wv, 384, P))
+
+
+def test_chunk_kv_kernel_ties(cuda_device):
+    """K11 with ties: keys exactly, payloads as pairs."""
+    from libhpc_tpu_torch.ops import sort_merge_kv as kv
+
+    P = 4 << 13
+    x = _keys(P, seed=3, dev=cuda_device) % 5
+    v = torch.arange(P, dtype=torch.int32, device=cuda_device)
+    kw = dict(log2c=13, alternate=True, invert=False, unflip=False)
+    gk, gv = kv.chunk_sort_kv_kernel(x, v, 0, P // 128, **kw)
+    wk, wv = kv._chunk_sort_kv_torch(x, v, 0, P // 128, **kw)
+    assert torch.equal(gk, wk)
+    assert torch.equal(_pairs(gk, gv), _pairs(wk, wv))
+
+
+@pytest.mark.parametrize("invert,unflip", [(False, False), (True, True)])
+@pytest.mark.parametrize("log2r,n_pairs,ties", [(10, 3, False), (10, 1, True),
+                                                (12, 5, True),
+                                                (14, 2, False)])
+def test_merge_level_kv_kernel_matches_plain(cuda_device, log2r, n_pairs,
+                                             ties, invert, unflip):
+    """K12 as a level; ties include keys equal to the +inf fill of both
+    window directions (0xFFFFFFFF and 0)."""
+    from libhpc_tpu_torch.ops import sort_merge_kv as kv
+
+    P = n_pairs << (log2r + 1)
+    if ties:
+        x = _keys(P, seed=log2r, dev=cuda_device) % 3 - 1
+    else:
+        x = torch.randperm(1 << 24, device=cuda_device)[:P].to(torch.int32)
+    v = torch.arange(P, dtype=torch.int32, device=cuda_device) * 3
+    PAD = 1 << 15
+    rows = (2 * PAD + P + 2048) // 128
+    bk, bv = kv._chunk_sort_kv_torch(x, v, PAD // 128, rows, log2c=log2r,
+                                     alternate=True, invert=False,
+                                     unflip=False)
+    lw = min(17, log2r)
+    n0 = kv.MERGE_LAUNCHES
+    gk, gv = kv._merge_level_kv(bk, bv, P, PAD, rows, log2r, lw, invert,
+                                unflip)
+    assert kv.MERGE_LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    wk, wv = kv._merge_level_kv_torch(bk, bv, P, PAD, rows, log2r, lw,
+                                      invert, unflip)
+    gk, gv = _region(gk, PAD, P), _region(gv, PAD, P)
+    wk, wv = _region(wk, PAD, P), _region(wv, PAD, P)
+    assert torch.equal(gk, wk)
+    if ties:
+        assert torch.equal(_pairs(gk, gv), _pairs(wk, wv))
+        assert torch.equal(torch.sort(gv).values, v)
+    else:
+        assert torch.equal(gv, wv)
+
+
+@pytest.mark.parametrize("desc_out,unflip", [(True, False), (False, True)])
+@pytest.mark.parametrize("LA,LB,ties", [(1 << 14, 1 << 12, False),
+                                        (1 << 12, 1 << 13, True),
+                                        (1 << 16, 1 << 16, False)])
+def test_merge_pair_kv_kernel_matches_plain(cuda_device, LA, LB, ties,
+                                            desc_out, unflip):
+    from libhpc_tpu_torch.ops import sort_merge_kv as kv
+
+    perm = torch.randperm(1 << 24, device=cuda_device).to(torch.int32)
+    a, b = perm[:LA], perm[LA:LA + LB]
+    if ties:
+        a, b = a % 3 - 1, b % 3 - 1
+    va = torch.arange(LA, dtype=torch.int32, device=cuda_device)
+    vb = torch.arange(LA, LA + LB, dtype=torch.int32, device=cuda_device)
+    ak, av = kv._sort_segment_kv(a, va, 10, 12, invert=False, unflip=False)
+    bk, bv = kv._sort_segment_kv(b, vb, 10, 12, invert=True, unflip=False)
+    PAD = 1 << 12
+    lw = min(12, ((LA + LB) & -(LA + LB)).bit_length() - 1)
+    m0, p0 = kv.MERGE_LAUNCHES, kv.PAIR_LAUNCHES
+    gk, gv = kv._merge_pair_kv(ak, av, bk, bv, LA, LB, PAD, lw, desc_out,
+                               unflip)
+    assert (kv.MERGE_LAUNCHES, kv.PAIR_LAUNCHES) == (m0 + 1, p0 + 1)
+    torch.cuda.synchronize()
+    wk, wv = kv._merge_pair_kv_torch(ak, av, bk, bv, LA, LB, PAD, lw,
+                                     desc_out, unflip)
+    n = LA + LB
+    gk, gv = _region(gk, PAD, n), _region(gv, PAD, n)
+    wk, wv = _region(wk, PAD, n), _region(wv, PAD, n)
+    assert torch.equal(gk, wk)
+    assert torch.equal(_pairs(gk, gv), _pairs(wk, wv))
+    if not ties:
+        assert torch.equal(gv, wv)
+
+
+@pytest.mark.parametrize("n,log2c,log2w", [
+    (1, 10, 11), (111, 10, 11), (700, 10, 11), (3000, 10, 11),
+    (3987, 10, 11), (11300, 10, 11), (100_003, 10, 11), (3000, 15, 17),
+    ((1 << 20) + 7, 15, 17), (5_000_000, 15, 17)])
+def test_merge_sort_kv_on_card(cuda_device, n, log2c, log2w):
+    """merge_sort_kv_u32 with keys of a small alphabet holding 0, the sign
+    boundary and 0xFFFFFFFF: keys exactly as torch.sort's, every payload
+    once beside its own key; merge_argsort_u32 on distinct-ish keys."""
+    from libhpc_tpu_torch.ops import sort_merge_kv as kv
+
+    alphabet = torch.tensor([0, 5, 0x7FFFFFFF, -2**31, -1], dtype=torch.int32,
+                            device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    k = alphabet[torch.randint(0, 5, (n,), device=cuda_device, generator=g)]
+    v = torch.rand(n, device=cuda_device, generator=g)
+    c0 = kv.CHUNK_LAUNCHES
+    ks, vs = kv.merge_sort_kv_u32(k.view(torch.uint32), v, log2c=log2c,
+                                  log2w=log2w)
+    assert ks.dtype == torch.uint32 and vs.dtype == torch.float32
+    assert ks.device.type == vs.device.type == "cuda"
+    assert torch.equal(ks.view(torch.int32), _sorted_bits(k))
+    assert torch.equal(_pairs(ks, vs), _pairs(k, v))
+    if n > 1:
+        assert kv.CHUNK_LAUNCHES > c0
+    x = _keys(n, seed=n % 997, dev=cuda_device)
+    s, order = kv.merge_argsort_u32(x, log2c=log2c, log2w=log2w)
+    assert order.dtype == torch.int32
+    assert torch.equal(s.view(torch.int32), _sorted_bits(x))
+    assert torch.equal(x[order.long()], s.view(torch.int32))
+    assert torch.equal(torch.sort(order).values,
+                       torch.arange(n, dtype=torch.int32, device=cuda_device))
+
+
+@pytest.mark.parametrize("n", [1, 111, 4096, 4097, 262_201, 1 << 24,
+                               (1 << 24) + 5, 30_000_001])
+def test_scan_kernels_match_plain(cuda_device, n):
+    """K14 exactly against its plain version and int64 cumsum; K13 within
+    rtol/atol 1e-4 of a float64 oracle and of its plain version."""
+    from libhpc_tpu_torch.ops import scan
+
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    xi = torch.randint(0, 1000, (n,), dtype=torch.int32, device=cuda_device,
+                       generator=g)
+    i0, f0 = scan.SCAN_INT_LAUNCHES, scan.SCAN_F32_LAUNCHES
+    got = scan.exclusive_scan_pallas(xi)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, scan._exclusive_scan_int_torch(xi))
+    # int32 sums wrap past 2^31 (n >= 2^24 here)
+    want = (torch.cumsum(xi, 0, dtype=torch.int64) - xi).to(torch.int32)
+    assert torch.equal(got, want)
+    xf = torch.rand(n, device=cuda_device, generator=g)
+    gf = scan.exclusive_scan_pallas(xf)
+    assert (scan.SCAN_INT_LAUNCHES, scan.SCAN_F32_LAUNCHES) == (i0 + 1, f0 + 1)
+    oracle = (torch.cumsum(xf.double(), 0) - xf.double()).float()
+    torch.testing.assert_close(gf, oracle, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(gf, scan._exclusive_scan_f32_torch(xf),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_scan_kernel_wraps_and_narrow_dtypes(cuda_device):
+    """Sums past 2^31 wrap as int32 adds do; narrower integers wrap in
+    their own dtype; int64 and float64 are refused."""
+    from libhpc_tpu_torch.ops import scan
+
+    x = torch.full((5_000_001,), 2**30, dtype=torch.int32, device=cuda_device)
+    got = scan.exclusive_scan_pallas(x)
+    assert torch.equal(got, scan._exclusive_scan_int_torch(x))
+    assert got[:5].tolist() == [0, 2**30, -2**31, -2**30, 0]
+    for dt in (torch.int8, torch.uint8, torch.int16, torch.uint32):
+        y = (torch.arange(10_000, device=cuda_device) % 200).to(dt)
+        assert torch.equal(scan.exclusive_scan_pallas(y).cpu(),
+                           scan.exclusive_scan_pallas(y.cpu()))
+    for dt in (torch.int64, torch.float64):
+        with pytest.raises(TypeError):
+            scan.exclusive_scan_pallas(torch.zeros(10, dtype=dt,
+                                                   device=cuda_device))
+
+
+def test_kv_and_scan_wrappers_raise_on_bad_input(cuda_device):
+    from libhpc_tpu_torch.ops import scan
+    from libhpc_tpu_torch.ops import sort_merge_kv as kv
+
+    x = _keys(4096, dev=cuda_device)
+    kw = dict(alternate=True, invert=False, unflip=False)
+    with pytest.raises(ValueError):
+        kv.chunk_sort_kv_kernel(x, x.cpu(), 0, 40, log2c=10, **kw)
+    with pytest.raises(TypeError):
+        kv.chunk_sort_kv_kernel(x, x.float(), 0, 40, log2c=10, **kw)
+    with pytest.raises(ValueError):
+        kv.chunk_sort_kv_kernel(x, x, 0, 40, log2c=14, **kw)
+    bk, bv = kv._chunk_sort_kv_torch(x, x, 16, 64, log2c=10, **kw)
+    with pytest.raises(TypeError):
+        kv._merge_level_kv(bk, bv.float(), 4096, 2048, 64, 10, 10, False,
+                           False)
+    with pytest.raises(ValueError):
+        kv.merge_sort_kv_u32(x, x[:-1])
+    with pytest.raises(ValueError):
+        scan._exclusive_scan_f32(torch.zeros(64, device=cuda_device)[::2])
+    with pytest.raises(TypeError):
+        scan._exclusive_scan_int(torch.zeros(64, device=cuda_device))
+
+
+def test_entry_points_default_to_the_card(cuda_device):
+    """Builders and numpy inputs given no device land on the card."""
+    from libhpc_tpu_torch.ops import scan, sort, sort_merge
+    from libhpc_tpu_torch.ops import sort_merge_kv as kv
+
+    A = matrices.poisson2d(64)
+    assert SBELL.from_scipy(A).device.type == "cuda"
+    assert DIA.from_scipy(A).to_pallas(T=1 << 13).device.type == "cuda"
+    assert spmv_sell.sell_from_scipy(A).device.type == "cuda"
+    assert sellp.sellp_from_scipy(A).device.type == "cuda"
+    c, _ = auto.auto_format(A)
+    assert c.device.type == "cuda"
+    x = np.random.default_rng(0).integers(0, 2**32, 5000, dtype=np.uint32)
+    assert sort_merge.merge_sort_u32(x, 10, 11).device.type == "cuda"
+    assert kv.merge_argsort_u32(x, 10, 11)[1].device.type == "cuda"
+    assert scan.exclusive_scan_pallas(x.view(np.int32)).device.type == "cuda"
+    assert sort.is_sorted(np.sort(x)).device.type == "cuda"

@@ -64,12 +64,12 @@ def test_dia_containers_and_spmv(name):
     kernel wrapper's plain path) and dia_spmv match scipy."""
     A = MATRICES[name]()
     ref = RefDIA.from_scipy(A)
-    port = DIA.from_scipy(A)
+    port = DIA.from_scipy(A, device="cpu")
     assert_same_container(port, ref)
     assert_same_container(port_of(ref), ref)
     assert (port.ndiags, port.nnz_stored) == (ref.ndiags, ref.nnz_stored)
     rdp = ref_dp.DiaPallas.from_dia(ref, T=T_TEST)
-    dp = DiaPallas.from_dia(port, T=T_TEST)
+    dp = DiaPallas.from_dia(port, T=T_TEST, device="cpu")
     assert_same_container(dp, rdp)
     assert (dp.n_tiles, dp.hbm_bytes) == (rdp.n_tiles, rdp.hbm_bytes)
     x = _x(A.shape[1])
@@ -90,7 +90,8 @@ def test_dia_spmv_pallas_matches_reference(name):
     y_ref = np.asarray(ref_dp.dia_spmv_pallas(
         ref_dp.DiaPallas.from_dia(RefDIA.from_scipy(A), T=T_TEST),
         jnp.asarray(x)))
-    y = spmv_dia.dia_spmv_pallas(DIA.from_scipy(A).to_pallas(T=T_TEST),
+    y = spmv_dia.dia_spmv_pallas(
+        DIA.from_scipy(A, device="cpu").to_pallas(T=T_TEST),
                                  torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(y, y_ref, rtol=RTOL, atol=ATOL)
 
@@ -98,7 +99,8 @@ def test_dia_spmv_pallas_matches_reference(name):
 def test_wide_rect_x_ext_length():
     """ncols far beyond the diagonals' reach: x_ext must hold all of x
     (the negative-pad regression of tests/test_dia_pallas.py:56-61)."""
-    dp = DIA.from_scipy(MATRICES["wide_rect"]()).to_pallas(T=T_TEST)
+    dp = DIA.from_scipy(MATRICES["wide_rect"](),
+                        device="cpu").to_pallas(T=T_TEST)
     L = spmv_dia.x_ext_len(dp)
     assert L == -(-(dp.x_pad_lo + 200000) // LANE) * LANE
     assert L > dp.x_pad_lo + dp.n_tiles * dp.T + dp.span_pad
@@ -110,7 +112,7 @@ def test_wide_rect_x_ext_length():
                                   "wide_offsets"])
 def test_dia_spmv_and_transpose_match_reference(name):
     A = MATRICES[name]()
-    ref, port = RefDIA.from_scipy(A), DIA.from_scipy(A)
+    ref, port = RefDIA.from_scipy(A), DIA.from_scipy(A, device="cpu")
     x = _x(A.shape[1])
     y = np.random.default_rng(3).standard_normal(A.shape[0]) \
         .astype(np.float32)
@@ -132,7 +134,7 @@ def test_dia_guard_offsets():
     offs = list(range(-60, 61))            # 121 offsets > MAX_DIA_OFFSETS
     A = sps.diags([np.ones(n - abs(o)) for o in offs], offs, shape=(n, n),
                   format="csr", dtype=np.float32)
-    dia = DIA.from_scipy(A)
+    dia = DIA.from_scipy(A, device="cpu")
     assert dia.ndiags == 121 > spmv.MAX_DIA_OFFSETS
     with pytest.raises(ValueError, match="compile-safety cap"):
         spmv.dia_spmv(dia, torch.zeros(n))
@@ -144,13 +146,13 @@ def test_dia_conversions():
     """from_csr, to_scipy, todense and a narrow scipy data array (padded
     to ncols, dia.py:50-51); data keeps scipy's dtype."""
     A = MATRICES["rect"]()
-    dia = DIA.from_csr(CSR.from_scipy(A))
+    dia = DIA.from_csr(CSR.from_scipy(A, device="cpu"))
     assert dia.data.shape == (2, 7000) and dia.dtype == torch.float32
     np.testing.assert_array_equal(dia.to_scipy().toarray(), A.toarray())
     np.testing.assert_array_equal(dia.todense().numpy(), A.toarray())
     narrow = sps.dia_matrix((np.ones((1, 3), np.float64), [0]),
                             shape=(5, 8))
-    d64 = DIA.from_scipy(narrow)
+    d64 = DIA.from_scipy(narrow, device="cpu")
     assert d64.data.shape == (1, 8) and d64.dtype == torch.float64
     np.testing.assert_array_equal(d64.todense().numpy(), narrow.toarray())
 
@@ -160,7 +162,7 @@ def test_dia_pattern_probe_matches_model():
     the sum of the tile's planes (the numpy oracle of
     tests/test_dia_pallas.py:64-96), and equals the reference's probe."""
     A = matrices.poisson2d(64)
-    dp = DIA.from_scipy(A).to_pallas(T=1 << 12)
+    dp = DIA.from_scipy(A, device="cpu").to_pallas(T=1 << 12)
     n = A.shape[1]
     x = np.linspace(-1, 1, n).astype(np.float32)
     out = spmv_dia.dia_pattern_probe(dp, torch.from_numpy(x)).numpy()

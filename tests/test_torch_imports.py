@@ -1,8 +1,11 @@
-"""Import hygiene of the PyTorch port, and its CPU dispatch rule.
+"""Import hygiene of the PyTorch port, its CPU dispatch rule, and where its
+entry points put their results.
 
 Importing any libhpc_tpu_torch module must pull in no jax, jaxlib or
-triton, and must build nothing. On CPU tensors each kernel wrapper runs its
-plain version and leaves its launch counter at 0.
+triton, must build nothing and must touch no CUDA state. On CPU tensors
+each kernel wrapper runs its plain version and leaves its launch counter at
+0. Builders and numpy inputs given no device aim at the card: where there
+is none they raise rather than run on the CPU.
 """
 
 import os
@@ -11,6 +14,7 @@ import sys
 import textwrap
 
 import numpy as np
+import pytest
 import torch
 
 from libhpc_tpu_torch.bench import matrices
@@ -42,6 +46,8 @@ MODULES = [
     "libhpc_tpu_torch.ops.histogram",
     "libhpc_tpu_torch.ops.sort",
     "libhpc_tpu_torch.ops.sort_merge",
+    "libhpc_tpu_torch.ops.sort_merge_kv",
+    "libhpc_tpu_torch.ops.scan",
     "libhpc_tpu_torch.bench",
     "libhpc_tpu_torch.bench.matrices",
 ]
@@ -73,6 +79,8 @@ def test_import_pulls_in_no_jax_triton_or_build():
         assert os.path.exists(build) == before, "import created _build/"
         from libhpc_tpu_torch.ops import _cuda_utils
         assert _cuda_utils._LIB is None
+        import torch
+        assert not torch.cuda.is_initialized(), "import touched CUDA"
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -87,7 +95,7 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
     monkeypatch.setattr(far_sbell, "FAR_LAUNCHES", 0)
     A = matrices.block_random(150, block=8, blocks_per_row=5, seed=9,
                               half_band=5, far_fraction=0.05)
-    sb = SBELL.from_scipy(A)
+    sb = SBELL.from_scipy(A, device="cpu")
     assert isinstance(sb.far, FarPane)
     xpad = np.linspace(-1, 1, sb.n_panes * 1024).astype(np.float32)
     x3 = spmv_sbell.x_to_panes(sb, torch.from_numpy(xpad))
@@ -110,17 +118,17 @@ def test_cpu_tensors_take_the_plain_path_spmv_family(monkeypatch):
         monkeypatch.setattr(mod, name, 0)
     A = matrices.poisson2d(64)
     x = torch.from_numpy(np.linspace(-1, 1, A.shape[1]).astype(np.float32))
-    dp = DIA.from_scipy(A).to_pallas(T=1 << 12)
+    dp = DIA.from_scipy(A, device="cpu").to_pallas(T=1 << 12)
     x_ext = spmv_dia.extend_x(dp, x)
     assert torch.equal(spmv_dia.dia_out(dp, x_ext),
                        spmv_dia.dia_out_torch(dp, x_ext))
     assert torch.equal(spmv_dia.dia_probe_out(dp, x_ext),
                        spmv_dia.dia_probe_out_torch(dp, x_ext))
-    sp = spmv_sell.sell_from_scipy(A)
+    sp = spmv_sell.sell_from_scipy(A, device="cpu")
     x3 = spmv_sell.x_panes(x, sp.n_panes, sp.W - 1)
     assert torch.equal(spmv_sell.sell_out_panes(sp, x3),
                        spmv_sell.sell_out_panes_torch(sp, x3))
-    spp = sellp.sellp_from_scipy(A)
+    spp = sellp.sellp_from_scipy(A, device="cpu")
     x3p = spmv_sell.x_panes(x, spp.n_panes)
     assert torch.equal(sellp.sellp_out_panes(spp, x3p),
                        sellp.sellp_out_panes_torch(spp, x3p))
@@ -153,3 +161,119 @@ def test_cpu_tensors_take_the_plain_path_sort(monkeypatch):
     assert torch.equal(h, histogram.histogram_pallas_torch(x & 255, 256))
     assert (sm.CHUNK_LAUNCHES, sm.MERGE_LAUNCHES, sm.PAIR_LAUNCHES,
             histogram.HIST_LAUNCHES) == (0, 0, 0, 0)
+
+
+def test_cpu_tensors_take_the_plain_path_kv_and_scan(monkeypatch):
+    """K11-K14's wrappers on CPU tensors equal their plain versions and
+    leave their launch counters at 0."""
+    from libhpc_tpu_torch.ops import scan, sort_merge_kv as kv
+
+    for mod, name in ((kv, "CHUNK_LAUNCHES"), (kv, "MERGE_LAUNCHES"),
+                      (kv, "PAIR_LAUNCHES"), (scan, "SCAN_F32_LAUNCHES"),
+                      (scan, "SCAN_INT_LAUNCHES")):
+        monkeypatch.setattr(mod, name, 0)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.permutation(1 << 13).astype(np.int32))
+    v = torch.from_numpy(rng.integers(0, 100, 1 << 13).astype(np.int32))
+    kw = dict(log2c=10, alternate=True, invert=False, unflip=False)
+    rk, rv = kv.chunk_sort_kv_kernel(x, v, 16, 100, **kw)
+    pk, pv = kv._chunk_sort_kv_torch(x, v, 16, 100, **kw)
+    assert torch.equal(rk[16:80], pk[16:80])
+    assert torch.equal(rv[16:80], pv[16:80])
+    mk, mv = kv._merge_level_kv(rk, rv, 1 << 13, 2048, 100, 10, 10, False,
+                                False)
+    wk, wv = kv._merge_level_kv_torch(rk, rv, 1 << 13, 2048, 100, 10, 10,
+                                      False, False)
+    assert torch.equal(mk[16:80], wk[16:80])
+    assert torch.equal(mv[16:80], wv[16:80])
+    kv.merge_sort_kv_u32(x[:5000], v[:5000], log2c=10, log2w=11)
+    f = torch.from_numpy(rng.random(5000).astype(np.float32))
+    assert torch.equal(scan.exclusive_scan_pallas(f),
+                       scan._exclusive_scan_f32_torch(f))
+    assert torch.equal(scan.exclusive_scan_pallas(v),
+                       scan._exclusive_scan_int_torch(v))
+    assert (kv.CHUNK_LAUNCHES, kv.MERGE_LAUNCHES, kv.PAIR_LAUNCHES,
+            scan.SCAN_F32_LAUNCHES, scan.SCAN_INT_LAUNCHES) == (0,) * 5
+
+
+def _aims_at_the_card(fn):
+    """fn() with no device given must aim at "cuda": on a machine without
+    a card it raises (torch's "not compiled with CUDA" or "no CUDA GPUs"),
+    and never returns a result computed on the CPU."""
+    if torch.cuda.is_available():
+        out = fn()
+        dev = out[0].device if isinstance(out, tuple) else out.device
+        assert dev.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA|NVIDIA"):
+        fn()
+
+
+def _builders():
+    from libhpc_tpu_torch.sparse import CSR, ELL, auto
+
+    A = matrices.poisson2d(32)
+    dia_cpu = DIA.from_scipy(A, device="cpu")
+    ell_cpu = ELL.from_scipy(A, device="cpu")
+    return {
+        "CSR.from_scipy": lambda: CSR.from_scipy(A),
+        "CSR.from_dense": lambda: CSR.from_dense(A.toarray()),
+        "SBELL.from_scipy": lambda: SBELL.from_scipy(A),
+        "DIA.from_scipy": lambda: DIA.from_scipy(A),
+        "ELL.from_scipy": lambda: ELL.from_scipy(A),
+        "auto_format": lambda: auto.auto_format(A),
+        "sell_from_ell": lambda: spmv_sell.sell_from_ell(ell_cpu),
+        "sell_from_scipy": lambda: spmv_sell.sell_from_scipy(A),
+        "sellp_from_scipy": lambda: sellp.sellp_from_scipy(A),
+        "DiaPallas.from_dia": lambda: spmv_dia.DiaPallas.from_dia(
+            dia_cpu, T=1 << 12),
+    }
+
+
+BUILDERS = ["CSR.from_scipy", "CSR.from_dense", "SBELL.from_scipy",
+            "DIA.from_scipy", "ELL.from_scipy", "auto_format",
+            "sell_from_ell", "sell_from_scipy", "sellp_from_scipy",
+            "DiaPallas.from_dia"]
+
+
+@pytest.mark.parametrize("name", BUILDERS)
+def test_builders_default_to_the_card(name):
+    _aims_at_the_card(_builders()[name])
+
+
+def _numpy_ops():
+    from libhpc_tpu_torch.ops import scan, sort, sort_merge
+    from libhpc_tpu_torch.ops import sort_merge_kv as kv
+
+    x = np.random.default_rng(1).integers(0, 2**32, 3000, dtype=np.uint32)
+    return {
+        "u32_bits": lambda: sort.u32_bits(x),
+        "is_sorted": lambda: sort.is_sorted(x),
+        "sort_u32": lambda: sort.sort_u32(x),
+        "merge_sort_u32": lambda: sort_merge.merge_sort_u32(x, 10, 11),
+        "merge_sort_kv_u32": lambda: kv.merge_sort_kv_u32(x, x, 10, 11),
+        "merge_argsort_u32": lambda: kv.merge_argsort_u32(x, 10, 11),
+        "exclusive_scan": lambda: scan.exclusive_scan(x),
+        "inclusive_scan": lambda: scan.inclusive_scan(x),
+        "exclusive_scan_pallas": lambda: scan.exclusive_scan_pallas(x),
+    }
+
+
+NUMPY_OPS = ["u32_bits", "is_sorted", "sort_u32", "merge_sort_u32",
+             "merge_sort_kv_u32", "merge_argsort_u32", "exclusive_scan",
+             "inclusive_scan", "exclusive_scan_pallas"]
+
+
+@pytest.mark.parametrize("name", NUMPY_OPS)
+def test_numpy_inputs_default_to_the_card(name):
+    _aims_at_the_card(_numpy_ops()[name])
+
+
+def test_torch_tensors_stay_on_their_device():
+    from libhpc_tpu_torch.ops import scan, sort_merge_kv as kv
+
+    x = torch.arange(3000, dtype=torch.int32).flip(0)
+    s, order = kv.merge_argsort_u32(x, 10, 11)
+    assert s.device.type == order.device.type == "cpu"
+    assert scan.exclusive_scan_pallas(x).device.type == "cpu"
+    assert torch.equal(order, torch.arange(3000, dtype=torch.int32).flip(0))

@@ -99,7 +99,7 @@ def _check_tile_ptr(sb):
 def test_container_parity(name):
     A = MATRICES[name]()
     ref = RefSBELL.from_scipy(A)
-    port = SBELL.from_scipy(A)
+    port = SBELL.from_scipy(A, device="cpu")
     assert_same_container(port, ref)
     _check_tile_ptr(port)
     # from_numpy of the reference's leaves builds the same container
@@ -116,7 +116,8 @@ def test_spmv_parity(name):
     x = _x(A.shape[1])
     y_ref = np.asarray(ref_spmv.sbell_spmv(RefSBELL.from_scipy(A),
                                            jnp.asarray(x)))
-    y = spmv_sbell.sbell_spmv(SBELL.from_scipy(A), torch.from_numpy(x))
+    y = spmv_sbell.sbell_spmv(SBELL.from_scipy(A, device="cpu"),
+                              torch.from_numpy(x))
     assert y.dtype == torch.float32 and y.shape == (A.shape[0],)
     np.testing.assert_allclose(y.numpy(), A @ x, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(y.numpy(), y_ref, rtol=RTOL, atol=ATOL)
@@ -126,13 +127,13 @@ def test_far_set_kinds():
     """FarPane by default, flat FarBlocks with group_far=False, and the
     FarBlocks fallback when one stripe holds more than LANE far blocks."""
     far_split = MATRICES["far_split"]()
-    assert isinstance(SBELL.from_scipy(far_split).far, FarPane)
+    assert isinstance(SBELL.from_scipy(far_split, device="cpu").far, FarPane)
     flat_ref = RefSBELL.from_scipy(far_split, group_far=False)
-    flat = SBELL.from_scipy(far_split, group_far=False)
+    flat = SBELL.from_scipy(far_split, group_far=False, device="cpu")
     assert isinstance(flat.far, FarBlocks)
     assert_same_container(flat, flat_ref)
     spread = _multi_pane_spread()
-    sb = SBELL.from_scipy(spread)
+    sb = SBELL.from_scipy(spread, device="cpu")
     assert isinstance(sb.far, FarBlocks)
     rows = sb.far.rows.numpy()
     assert np.bincount(rows // LANE).max() > LANE
@@ -148,7 +149,7 @@ def test_astype_bf16_and_retile():
     A = matrices.block_random(260, block=8, blocks_per_row=6, seed=21,
                               half_band=5, far_fraction=0.05)
     ref = RefSBELL.from_scipy(A)
-    port = SBELL.from_scipy(A)
+    port = SBELL.from_scipy(A, device="cpu")
     ref16 = ref.astype_values(jnp.bfloat16)
     p16 = port.astype_values(torch.bfloat16)
     assert p16.tpb == ref16.tpb == 32
@@ -172,7 +173,7 @@ def test_astype_bf16_and_retile():
 
 def test_from_numpy_round_trip():
     A = MATRICES["far_split"]()
-    port = SBELL.from_scipy(A)
+    port = SBELL.from_scipy(A, device="cpu")
     far = type(port.far).from_numpy(port.far.to_numpy(),
                                     **port.far.statics())
     again = SBELL.from_numpy(port.to_numpy(), far=far, **port.statics())
@@ -195,7 +196,8 @@ def test_forced_chunked_reference(monkeypatch):
     ref = RefSBELL.from_scipy(A)
     y_ref = np.asarray(ref_spmv.sbell_spmv(ref, jnp.asarray(x)))
     assert len(ref_spmv._chunk_plan(ref)[3]) > 1      # actually chunked
-    y = spmv_sbell.sbell_spmv(SBELL.from_scipy(A), torch.from_numpy(x))
+    y = spmv_sbell.sbell_spmv(SBELL.from_scipy(A, device="cpu"),
+                              torch.from_numpy(x))
     np.testing.assert_allclose(y.numpy(), A @ x, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(y.numpy(), y_ref, rtol=RTOL, atol=ATOL)
 
@@ -204,7 +206,7 @@ def test_spmv_padded_domain():
     A = matrices.block_random(150, block=8, blocks_per_row=5, seed=9,
                               half_band=5, far_fraction=0.05)
     m, n = A.shape
-    sb = SBELL.from_scipy(A)
+    sb = SBELL.from_scipy(A, device="cpu")
     xpad = np.pad(_x(n), (0, sb.n_panes * 1024 - n))
     ypad = spmv_sbell.sbell_spmv_padded(sb, torch.from_numpy(xpad)).numpy()
     assert ypad.shape == (sb.n_stripes * 1024,)
@@ -221,7 +223,7 @@ def test_spmv_panes_chain():
     A = matrices.block_random(260, block=8, blocks_per_row=5, seed=13,
                               half_band=5, far_fraction=0.04)
     m, n = A.shape
-    sb = SBELL.from_scipy(A)
+    sb = SBELL.from_scipy(A, device="cpu")
     xpad = np.pad(_x(n), (0, sb.n_panes * 1024 - n))
     x3 = spmv_sbell.x_to_panes(sb, torch.from_numpy(xpad))
     assert x3.shape == (sb.n_panes + 2, 8, 128)

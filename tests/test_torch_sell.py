@@ -92,7 +92,7 @@ def _check_walk(sp):
 def test_sell_container_and_spmv(name):
     A = MATRICES[name]()
     ref = ref_sell.sell_from_scipy(A)
-    port = spmv_sell.sell_from_scipy(A)
+    port = spmv_sell.sell_from_scipy(A, device="cpu")
     assert_same_container(port, ref)
     assert_same_container(port_of(ref), ref)
     assert (port.n_tiles, port.hbm_bytes, port.W) == (ref.n_tiles,
@@ -114,7 +114,7 @@ def test_sell_container_and_spmv(name):
 ])
 def test_sell_spmv_matches_reference(name, kind):
     A = MATRICES[name]()
-    port = spmv_sell.sell_from_scipy(A)
+    port = spmv_sell.sell_from_scipy(A, device="cpu")
     assert type(port) is kind
     x = _x(A.shape[1])
     y = spmv_sell.sell_spmv(port, torch.from_numpy(x)).numpy()
@@ -126,11 +126,13 @@ def test_sell_spmv_matches_reference(name, kind):
 def test_sell_split_and_merged_kinds():
     """SELLSplit when at least TPB single-pane tiles exist beside the
     multi-pane ones; one merged SELL at the wide span below that."""
-    split = spmv_sell.sell_from_scipy(MATRICES["split_banded20000"]())
+    split = spmv_sell.sell_from_scipy(MATRICES["split_banded20000"](),
+                                      device="cpu")
     assert isinstance(split, SELLSplit)
     assert split.near.W == 1 and split.W == split.wide.W == 2
     assert split.near.n_tiles >= spmv_sell.TPB
-    merged = spmv_sell.sell_from_scipy(MATRICES["poisson64_pane_crossing"]())
+    merged = spmv_sell.sell_from_scipy(MATRICES["poisson64_pane_crossing"](),
+                                       device="cpu")
     assert isinstance(merged, SELL) and merged.W == 2
     # near tiles, then wide tiles: the stream is not stripe-major, which
     # is why the kernel walks tile_order
@@ -144,7 +146,7 @@ def test_sell_wide_scatter_raises():
     A = sps.coo_matrix((np.ones(128, np.float32), (rows, rows * 37)),
                        shape=(128, 8 * 1024)).tocsr()
     with pytest.raises(ValueError, match="SBELL"):
-        spmv_sell.sell_from_scipy(A)
+        spmv_sell.sell_from_scipy(A, device="cpu")
     with pytest.raises(ValueError, match="SBELL"):
         ref_sell.sell_from_scipy(A)
 
@@ -152,7 +154,7 @@ def test_sell_wide_scatter_raises():
 def test_sell_empty_and_zero_rows_values():
     A = MATRICES["empty_and_zero_rows"]()
     x = np.arange(2048, dtype=np.float32)
-    y = spmv_sell.sell_spmv(spmv_sell.sell_from_scipy(A),
+    y = spmv_sell.sell_spmv(spmv_sell.sell_from_scipy(A, device="cpu"),
                             torch.from_numpy(x)).numpy()
     assert y[5] == 14.0
     assert y[2000] == -3.0 * 1999
@@ -161,7 +163,7 @@ def test_sell_empty_and_zero_rows_values():
 
 def test_sell_chains_pane_layout():
     A = matrices.poisson2d(48)
-    sp = spmv_sell.sell_from_scipy(A)
+    sp = spmv_sell.sell_from_scipy(A, device="cpu")
     x = torch.from_numpy(_x(A.shape[1]))
     y2 = spmv_sell.sell_spmv(sp, spmv_sell.sell_spmv(sp, x)).numpy()
     np.testing.assert_allclose(y2, A @ (A @ x.numpy()), rtol=1e-3, atol=1e-3)
@@ -172,11 +174,12 @@ def test_sell_chains_pane_layout():
 def test_ell_container_and_spmv(name):
     A = MATRICES[name]()
     ref = RefELL.from_scipy(A)
-    port = ELL.from_scipy(A)
+    port = ELL.from_scipy(A, device="cpu")
     assert_same_container(port, ref)
     assert port.k == ref.k and port.dtype == torch.float32
-    assert_same_container(CSR.from_scipy(A).to_ell(pad_multiple=4),
-                          RefCSR.from_scipy(A).to_ell(pad_multiple=4))
+    assert_same_container(
+        CSR.from_scipy(A, device="cpu").to_ell(pad_multiple=4),
+        RefCSR.from_scipy(A).to_ell(pad_multiple=4))
     np.testing.assert_array_equal(port.todense().numpy(), A.toarray())
     np.testing.assert_array_equal(port.to_scipy().toarray(), A.toarray())
     x = _x(A.shape[1])
@@ -189,13 +192,14 @@ def test_ell_container_and_spmv(name):
 
 def test_ell_row_cap_and_empty():
     A = MATRICES["irregular_row_lengths"]()
-    csr = CSR.from_scipy(A)
+    csr = CSR.from_scipy(A, device="cpu")
     with pytest.raises(ValueError, match="entries would be dropped"):
         csr.to_ell(max_nnz_per_row=5)
     wide = csr.to_ell(max_nnz_per_row=9)
     assert wide.k == 16
     assert_same_container(wide, RefCSR.from_scipy(A).to_ell(9))
-    empty = ELL.from_scipy(sps.csr_matrix((300, 40), dtype=np.float32))
+    empty = ELL.from_scipy(sps.csr_matrix((300, 40), dtype=np.float32),
+                           device="cpu")
     assert_same_container(
         empty, RefELL.from_scipy(sps.csr_matrix((300, 40), dtype=np.float32)))
     assert empty.k == 1 and not torch.any(empty.vals)

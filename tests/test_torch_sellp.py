@@ -71,7 +71,7 @@ def test_sellp_container_and_spmv(name):
     make, fill_below = MATRICES[name]
     A = sps.csr_matrix(make(), dtype=np.float32)
     ref = ref_sellp.sellp_from_scipy(A)
-    port = sellp.sellp_from_scipy(A)
+    port = sellp.sellp_from_scipy(A, device="cpu")
     assert_same_container(port, ref)
     assert_same_container(port_of(ref), ref)
     assert (port.n_tiles, port.hbm_bytes) == (ref.n_tiles, ref.hbm_bytes)
@@ -95,7 +95,7 @@ def test_sellp_container_and_spmv(name):
 def test_sellp_spmv_matches_reference(name):
     A = sps.csr_matrix(MATRICES[name][0](), dtype=np.float32)
     x = _x(A.shape[1])
-    y = sellp.sellp_spmv(sellp.sellp_from_scipy(A),
+    y = sellp.sellp_spmv(sellp.sellp_from_scipy(A, device="cpu"),
                          torch.from_numpy(x)).numpy()
     y_ref = np.asarray(ref_sellp.sellp_spmv(ref_sellp.sellp_from_scipy(A),
                                             jnp.asarray(x)))
@@ -105,14 +105,14 @@ def test_sellp_spmv_matches_reference(name):
 def test_sellp_tiles_interleave_across_stripes():
     """The reference's tile stream is round-robin across stripes (tile k
     of every stripe before tile k+1); the port keeps it."""
-    sp = sellp.sellp_from_scipy(matrices.poisson2d(64))
+    sp = sellp.sellp_from_scipy(matrices.poisson2d(64), device="cpu")
     sid = sp.sid.numpy()[:sp.tile_ptr.numpy()[-1]]
     assert sp.n_stripes > 1 and np.any(np.diff(sid) < 0)
 
 
 def test_sellp_chains_with_pane_layout():
     A = matrices.poisson2d(64)
-    sp = sellp.sellp_from_scipy(A)
+    sp = sellp.sellp_from_scipy(A, device="cpu")
     x = torch.from_numpy(_x(A.shape[1]))
     y2 = sellp.sellp_spmv(sp, sellp.sellp_spmv(sp, x)).numpy()
     np.testing.assert_allclose(y2, A @ (A @ x.numpy()), rtol=1e-3, atol=1e-3)

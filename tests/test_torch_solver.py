@@ -34,7 +34,7 @@ def test_csr_parity(name):
         A = sps.random(60, 80, density=0.1, format="csr", dtype=np.float32,
                        random_state=np.random.RandomState(19))
     ref = RefCSR.from_scipy(A)
-    port = CSR.from_scipy(A)
+    port = CSR.from_scipy(A, device="cpu")
     assert_same_container(port, ref)
     assert_same_container(port_of(ref), ref)
     assert port.nnz == ref.nnz and port.dtype == torch.float32
@@ -45,7 +45,7 @@ def test_csr_parity(name):
     assert port.max_row_length() == ref.max_row_length()
     np.testing.assert_array_equal(port.todense().numpy(), A.toarray())
     assert (port.to_scipy() != A).nnz == 0
-    assert_same_container(CSR.from_dense(A.toarray()), ref)
+    assert_same_container(CSR.from_dense(A.toarray(), device="cpu"), ref)
 
     x = np.random.default_rng(0).standard_normal(A.shape[1]) \
         .astype(np.float32)
@@ -86,7 +86,7 @@ def test_krylov_parity(method):
         n = A.shape[0]
         A = (A + sps.diags(np.full(n - 1, -0.3, np.float32), 1)
              + 0.5 * sps.eye(n)).tocsr().astype(np.float32)
-    port, ref = CSR.from_scipy(A), RefCSR.from_scipy(A)
+    port, ref = CSR.from_scipy(A, device="cpu"), RefCSR.from_scipy(A)
     bt, bj = torch.from_numpy(b), jnp.asarray(b)
     kw = dict(tol=1e-6, max_iter=2000)
     if method == "pcg":
@@ -104,7 +104,7 @@ def test_krylov_parity(method):
 
 def test_jacobi_parity():
     A, b = _poisson_system(n=8, seed=2)
-    port, ref = CSR.from_scipy(A), RefCSR.from_scipy(A)
+    port, ref = CSR.from_scipy(A, device="cpu"), RefCSR.from_scipy(A)
     d = A.diagonal().astype(np.float32)
     x = solver.jacobi(lambda v: port @ v, torch.from_numpy(d),
                       torch.from_numpy(b), n_iter=200, omega=0.8)
@@ -143,7 +143,7 @@ def test_cg_sbell_panes_main_path():
     A = _spd_block_system()
     n = A.shape[0]
     ref = RefSBELL.from_scipy(A)
-    port = SBELL.from_scipy(A)
+    port = SBELL.from_scipy(A, device="cpu")
     assert_same_container(port, ref)
     b = np.ones(port.n_panes * 1024, np.float32)
     b[n:] = 0.0

@@ -67,7 +67,7 @@ CASES = {
 def test_merge_sort_u32_matches_reference(rng, case):
     x = CASES[case](rng)
     want = np.sort(x)
-    got = sm.merge_sort_u32(x, log2c=LOG2C, log2w=LOG2W)
+    got = sm.merge_sort_u32(x, log2c=LOG2C, log2w=LOG2W, device="cpu")
     assert got.dtype == torch.uint32 and got.shape == x.shape
     got = got.numpy()
     np.testing.assert_array_equal(got, want)
