@@ -15,7 +15,11 @@ family, libHPC's flagship: merge_sort_u32 on 500,000,000 seeded u32 keys
 100,000,000 (three segments, so the pair merge runs), the radix pipeline
 and bitonic network, and the histogram kernel on the keys' digit planes;
 then its key-value form (merge_argsort_u32 on the 500M keys,
-merge_sort_kv_u32 on 100M) and the exclusive scans on 500M elements.
+merge_sort_kv_u32 on 100M) and the exclusive scans on 500M elements. Then
+the dense-array, stencil and grid layer at the corpus's sizes: row sums,
+the transpose and the radius-8 box blur on 8192^2, the matmul at 1024^2
+and 8192^2, the Poisson stencils, and 2^20 particle writes into the sparse
+grids.
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -74,23 +78,52 @@ Phases, one JSON line each:
                against its plain version and int64 cumsum, on a wraparound
                case; K13 on 500M seeded f32 within 1e-4 of a float64
                cumsum; both again at 2^22; times beside torch.cumsum
- 20 launches   the kernel launch counts of each path, which must cover
-               every call it made (the sort, kv sort, scan and histogram
-               paths: exactly the launches their sizes call for); each
-               count is zeroed just before its path runs and read just
-               after, and the launches made to compare a kernel with its
-               plain version are not counted
- 21 sort_split one 500M sort profiled (CUPTI): device time of K8, of K9
+ 20 reduce     K16 row_sum_pallas on (8192, 8192) f32 against its plain
+               version (TOL_PLAIN) and a float64 row sum (rtol 1e-4);
+               tree_reduce_sum (f32 and int32) and the segment ops on 2^24
+               elements against float64 / int64 / sort-based oracles; times
+               beside torch.sum
+ 21 transpose  transpose() on 8192^2 f32 (one K17 launch) exactly x.t();
+               K17 on a ragged 5000 x 3001 int32 exactly; times beside
+               x.t().contiguous()
+ 22 matmul     K18 at 1024^2 and 8192^2 on mean-zero operands, in f32
+               (against its plain version and a float64 product: at rtol
+               1e-4, atol 1e-3 at 1024^2, and within the float32 rounding
+               bound sqrt(K) 2^-24 |A||B| at both sizes, which torch.matmul
+               with TF32 on must miss) and bf16 (against the f32 product of
+               the bf16 operands, 1e-2); times beside torch.matmul, TF32 off
+ 23 stencil    K19 blur2d_pallas on 8192^2, r = 8, against its plain
+               version and a float64 box sum; the plain blur2d (cumsum
+               form), F.avg_pool2d (zero-padded mean times 17^2, the
+               library yardstick, within 1e-3 of K19) and one F.conv2d with
+               a ones 17 x 17 weight (cuDNN, TF32 off) timed beside it;
+               poisson5_apply on 2048^2 and
+               poisson7_apply on 128^3 against csr_spmv of the Poisson
+               matrices
+ 24 grid       the particle-write workload: 2^20 seeded unit writes over
+               4096^2 into BlockGrid((256, 256), 16, 65536), touched in
+               raster and morton order, write_batch, write_batch_dense and
+               read_batch each equal to a dense index_put_ oracle, and a
+               NestedGrid over the same domain; writes/s
+ 25 launches   the kernel launch counts of each path, which must cover
+               every call it made (the sort, kv sort, scan, histogram and
+               dense-layer paths: exactly the launches their sizes call
+               for); each count is zeroed just before its path runs and
+               read just after, and the launches made to compare a kernel
+               with its plain version are not counted
+ 26 sort_split one 500M sort profiled (CUPTI): device time of K8, of K9
                and of the torch ops of the merge-path search
- 22 library    torch.sparse CSR matvecs of the SpMV kernels' matrices,
+ 27 library    torch.sparse CSR matvecs of the SpMV kernels' matrices,
                the library yardstick of K1-K7 (after every profile)
 
 Then a {"kernels": [...]} line (every kernel with its time, its plain
 version's, its bound -- the larger of its bytes over 3.35 TB/s and its
-float32 operations over 67 TFLOP/s -- and the time of one PyTorch call
-computing the same function: a torch.sparse CSR matvec for the SpMV
-kernels, torch.sort for the sorts, torch.bincount, torch.cumsum), the
-`nvidia-smi` name and power limit, and last {"ok": true, "device": {...}}.
+operations over the card's peak for their type: 67 TFLOP/s in float32, 989
+TFLOP/s for bfloat16 on the tensor cores -- and the time of one PyTorch
+call computing the same function: a torch.sparse CSR matvec for the SpMV
+kernels, torch.sort for the sorts, torch.bincount, torch.cumsum, torch.sum,
+x.t().contiguous(), torch.matmul, F.avg_pool2d), the `nvidia-smi` name and
+power limit, and last {"ok": true, "device": {...}}.
 Any failure raises: the script exits non-zero and prints no result. It
 needs CUDA and the repository beside it.
 """
@@ -106,15 +139,28 @@ import time
 TOL_PLAIN = 1e-5      # kernel vs plain version: rtol, and atol * max|y|
 TOL_GATE = 2e-3       # vs scipy: the bench's correctness gate
 TOL_SCAN = 1e-4       # K13 vs float64: rtol and atol (test_scan_reduce.py)
+TOL_ROW = 1e-4        # K16 vs float64: rtol (test_scan_reduce.py)
+# K18 in float32 vs float64 at 1024^2: rtol 1e-4, atol 1e-3
+# (test_histogram_transpose.py); at K = 8192 the rounding of a correct FP32
+# sum of mean-zero terms nears that atol, so both sizes are held to the
+# float32 rounding bound instead (fp32_bound_ratio)
+TOL_MM = (1e-4, 1e-3)
+# K18 in bfloat16 vs the float32 product of the bf16-rounded operands: its
+# output is rounded once to bf16 (relative 2^-9), plus float32 order
+TOL_MM_BF16 = 1e-2
 
 # the card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): device memory
-# bytes a second, and float32 operations a second outside the tensor cores
+# bytes a second, float32 operations a second outside the tensor cores, and
+# dense bfloat16 operations a second on the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+PEAK_BF16_OPS_S = 989e12
 
-# (kind, case) -> (bytes the function must move, f32 operations it does),
-# and kind -> ms of one PyTorch call computing the same function
+# (kind, case) -> (bytes the function must move, operations it does), the
+# peak rate of those operations by kind (float32 unless listed), and
+# kind -> ms of one PyTorch call computing the same function
 WORK: dict = {}
+OPS_PEAK = {"matmul_bf16": PEAK_BF16_OPS_S}
 LIBRARY_MS: dict = {}
 
 
@@ -1309,18 +1355,25 @@ def kv_kernels_phase(dev, kernel_times, log2p: int = 26):
           "max_abs_err": max(r[2] for r in rec.values())})
 
 
-def scan_case(kind, case, x, kernel, plain, library, check, kernel_times):
-    """A scan kernel against its plain version (`check`), then device
-    times of kernel, plain version and library call (CUDA events: a few
-    long kernels each)."""
+def kernel_case(kind, case, kernel, plain, check, kernel_times, reps=20):
+    """A kernel against its plain version on the same inputs (`check`
+    raises and returns the max |diff|), then CUDA-event times of each over
+    back-to-back calls (a few long kernels each). Records (ms, plain_ms,
+    max_abs_err)."""
     got, want = kernel(), plain()
     err = check(got, want, f"{case}: {kind} kernel vs plain")
     del got, want
-    kernel_times[kind][case] = (time_ms(kernel, reps=10),
-                                time_ms(plain, reps=5), err)
+    kernel_times[kind][case] = (time_ms(kernel, reps=reps),
+                                time_ms(plain, reps=max(3, reps // 2)), err)
+    return kernel_times[kind][case]
+
+
+def scan_case(kind, case, x, kernel, plain, library, check, kernel_times):
+    """kernel_case for a scan, with its bytes and the library call's time."""
+    t = kernel_case(kind, case, kernel, plain, check, kernel_times, reps=10)
     n = x.shape[0]
     WORK[(kind, case)] = (8 * n, n if x.is_floating_point() else 0)
-    return kernel_times[kind][case] + (time_ms(library, reps=10),)
+    return t + (time_ms(library, reps=10),)
 
 
 def scan_phase(keys, dev, kernel_times, launches):
@@ -1356,12 +1409,6 @@ def scan_phase(keys, dev, kernel_times, launches):
         raise AssertionError(f"scan: K13 off the float64 oracle by {err_f}")
     del out_i, out_f, oracle
 
-    def exact(got, want, what):
-        if not torch.equal(got, want):
-            raise AssertionError(f"{what}: {int((got != want).sum())} "
-                                 "differ")
-        return 0.0
-
     def close(got, want, what):
         if not torch.allclose(got, want, rtol=TOL_SCAN, atol=TOL_SCAN):
             raise AssertionError(f"{what}: max |diff| {max_err(got, want)}")
@@ -1379,7 +1426,7 @@ def scan_phase(keys, dev, kernel_times, launches):
         rec[f"int_{tag}"] = scan_case(
             "scan_int", tag, fi, lambda fi=fi: scan._exclusive_scan_int(fi),
             lambda fi=fi: scan._exclusive_scan_int_torch(fi),
-            lambda fi=fi: torch.cumsum(fi, 0, dtype=torch.int32), exact,
+            lambda fi=fi: torch.cumsum(fi, 0, dtype=torch.int32), exact_plain,
             kernel_times)
         rec[f"f32_{tag}"] = scan_case(
             "scan_f32", tag, ff, lambda ff=ff: scan._exclusive_scan_f32(ff),
@@ -1401,6 +1448,422 @@ def scan_phase(keys, dev, kernel_times, launches):
           **{f"{k}_bound_ms": b for k, b in bound.items()},
           **{f"{k}_gb_per_s": 8 * (n if k.endswith("500M") else 1 << 22)
              / (r[0] * 1e-3) / 1e9 for k, r in rec.items()}})
+
+
+DENSE_SEED = 20260502
+DENSE_N = 8192           # the corpus's 8192^2 arrays (bench/corpus.py:62-133)
+
+
+def rand_on(shape, dev, seed, dtype=None):
+    """Seeded uniform [0, 1) float32 tensor on the card (cast to dtype)."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.rand(shape, device=dev, generator=g)
+    return x if dtype is None else x.to(dtype)
+
+
+def close_plain(got, want, what):
+    assert_close(got, want, what, TOL_PLAIN, TOL_PLAIN)
+    return max_err(got, want)
+
+
+def exact_plain(got, want, what):
+    import torch
+
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"{what}: differs")
+    return 0.0
+
+
+def reduce_phase(dev, kernel_times, launches):
+    """K16 on (8192, 8192) float32 (the path: counter zeroed before, read
+    after) against its plain version and a float64 row sum; then
+    tree_reduce_sum and the segment ops on 2^24 elements against torch
+    oracles; times beside torch.sum."""
+    import torch
+
+    from libhpc_tpu_torch.ops import reduce as red
+
+    x = rand_on((DENSE_N, DENSE_N), dev, DENSE_SEED)
+    torch.cuda.synchronize()
+    red.ROW_SUM_LAUNCHES = 0
+    out = red.row_sum_pallas(x)
+    torch.cuda.synchronize()
+    launches["reduce"] = {"row_sum": red.ROW_SUM_LAUNCHES,
+                          "need": {"row_sum": 1}}
+    oracle = x.double().sum(dim=1)
+    err64 = max_err(out.double(), oracle)
+    if out.shape != (DENSE_N,) or not torch.allclose(
+            out.double(), oracle, rtol=TOL_ROW, atol=0):
+        raise AssertionError(f"row_sum_pallas: off float64 by {err64}")
+    t_k, t_p, err = kernel_case(
+        "row_sum", "8192^2", lambda: red.row_sum_pallas(x),
+        lambda: red.row_sum_pallas_torch(x), close_plain, kernel_times)
+    WORK[("row_sum", "8192^2")] = (nbytes(x, out), x.numel())
+    LIBRARY_MS["row_sum"] = time_ms(lambda: torch.sum(x, dim=1))
+    del out, oracle
+
+    n = 1 << 24
+    xf = x.reshape(-1)[:n]
+    xi = (x.reshape(-1)[n:2 * n] * 100).to(torch.int32)   # sum < 2^31
+    ids = (x.reshape(-1)[2 * n:3 * n] * 1024).to(torch.int64)
+    tree_f = red.tree_reduce_sum(xf)
+    tree_i = red.tree_reduce_sum(xi)
+    sum64 = float(xf.double().sum())
+    if (abs(float(tree_f) - sum64) > 1e-5 * sum64
+            or int(tree_i) != int(xi.long().sum())
+            or tree_i.dtype != torch.int32):
+        raise AssertionError(f"tree_reduce_sum: {float(tree_f)} vs {sum64}, "
+                             f"{int(tree_i)} vs {int(xi.long().sum())}")
+    seg = {f: getattr(red, f)(xf, ids, 1024)
+           for f in ("segment_sum", "segment_max", "segment_min")}
+    # oracles: a float64 index_add, and the ends of each segment's run
+    # after a stable sort by value, then by id
+    want_sum = torch.zeros(1024, dtype=torch.float64, device=dev)
+    want_sum.index_add_(0, ids, xf.double())
+    order = torch.sort(xf, stable=True).indices
+    order = order[torch.sort(ids[order], stable=True).indices]
+    ends = torch.cumsum(torch.bincount(ids, minlength=1024), 0) - 1
+    starts = torch.cat([ends.new_zeros(1), ends[:-1] + 1])
+    if not (torch.allclose(seg["segment_sum"].double(), want_sum,
+                           rtol=TOL_ROW)
+            and torch.equal(seg["segment_max"], xf[order[ends]])
+            and torch.equal(seg["segment_min"], xf[order[starts]])):
+        raise AssertionError("segment ops differ from their oracles")
+    rec = {"tree_reduce_sum_f32_ms": time_ms(lambda: red.tree_reduce_sum(xf)),
+           **{f"{f}_ms": time_ms(lambda f=f: getattr(red, f)(xf, ids, 1024))
+              for f in seg}}
+    del x, xf, xi, ids, seg, order
+    torch.cuda.synchronize()
+    emit({"phase": "reduce", "shape": [DENSE_N, DENSE_N],
+          **launches["reduce"], "row_sum_ms": t_k, "row_sum_plain_ms": t_p,
+          "row_sum_max_abs_err_vs_plain": err,
+          "row_sum_max_abs_err_vs_float64": err64,
+          "torch_sum_ms": LIBRARY_MS["row_sum"],
+          "row_sum_gb_per_s": WORK[("row_sum", "8192^2")][0] / (t_k * 1e-3)
+          / 1e9, "n_1d": n, "tree_reduce_sum_f32": float(tree_f),
+          "float64_sum": sum64, **rec})
+
+
+def transpose_phase(dev, kernel_times, launches):
+    """transpose() on 8192^2 float32 (the path: one K17 launch), exactly
+    x.t(); K17 on a ragged int32 shape exactly; times beside
+    x.t().contiguous()."""
+    import torch
+
+    from libhpc_tpu_torch.ops import transpose as tr
+
+    x = rand_on((DENSE_N, DENSE_N), dev, DENSE_SEED + 1)
+    torch.cuda.synchronize()
+    tr.TRANSPOSE_LAUNCHES = 0
+    y = tr.transpose(x)
+    torch.cuda.synchronize()
+    launches["transpose"] = {"transpose": tr.TRANSPOSE_LAUNCHES,
+                             "need": {"transpose": 1}}
+    if not torch.equal(y, x.t()):
+        raise AssertionError("transpose: differs from x.t()")
+    del y
+    t = kernel_case("transpose", "8192^2", lambda: tr.transpose_pallas(x),
+                    lambda: tr.transpose_pallas_torch(x), exact_plain,
+                    kernel_times)
+    WORK[("transpose", "8192^2")] = (2 * nbytes(x), 0)
+    LIBRARY_MS["transpose"] = time_ms(lambda: x.t().contiguous())
+    xi = (x[:5000, :3001] * 2**31).to(torch.int32)
+    ti = kernel_case("transpose", "5000x3001/int32",
+                     lambda: tr.transpose_pallas(xi),
+                     lambda: tr.transpose_pallas_torch(xi), exact_plain,
+                     kernel_times)
+    WORK[("transpose", "5000x3001/int32")] = (2 * nbytes(xi), 0)
+    del x, xi
+    torch.cuda.synchronize()
+    emit({"phase": "transpose", "shape": [DENSE_N, DENSE_N],
+          **launches["transpose"], "equal_to_x_t": True,
+          "transpose_ms": t[0], "plain_ms": t[1],
+          "torch_t_contiguous_ms": LIBRARY_MS["transpose"],
+          "gb_per_s": 2 * DENSE_N ** 2 * 4 / (t[0] * 1e-3) / 1e9,
+          "ragged_int32_ms": ti[0], "ragged_int32_plain_ms": ti[1]})
+
+
+def randn_on(shape, dev, seed, dtype=None):
+    """Seeded standard normal float32 tensor on the card (cast to dtype)."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn(shape, device=dev, generator=g)
+    return x if dtype is None else x.to(dtype)
+
+
+def fp32_bound_ratio(c, oracle, abs_prod, k: int) -> float:
+    """max |c - oracle| / (sqrt(k) 2^-24 (|A| |B|)), elementwise: the
+    probabilistic rounding bound of a float32 sum of k products (Higham and
+    Mary, SIAM J. Sci. Comput. 41(5), 2019). A float32 sum stays far
+    below 1; a product of operands rounded to TF32 (unit roundoff 2^-11)
+    lands above it."""
+    bound = abs_prod * (k ** 0.5 * 2.0 ** -24)
+    return float(((c.double() - oracle).abs() / bound.clamp_min(1e-300))
+                 .max())
+
+
+def matmul_phase(dev, kernel_times, launches):
+    """K18 at 1024^2 and 8192^2 in float32 and bfloat16 (the path: one
+    launch each) on mean-zero operands, so that rounding errors do not
+    average out. float32 against its plain version and a float64 product:
+    TOL_MM (the reference test's) at 1024^2, and at both sizes within the
+    float32 rounding bound (fp32_bound_ratio < 1), which torch.matmul with
+    TF32 on must miss (the control, run once a size). bfloat16 against the
+    float32 product of its rounded operands (TOL_MM_BF16). Times beside
+    torch.matmul (TF32 off)."""
+    import torch
+
+    from libhpc_tpu_torch.ops import matmul as mm
+
+    rec, counts = {}, {}
+    for n in (1024, DENSE_N):
+        for dtype, kind in ((torch.float32, "matmul"),
+                            (torch.bfloat16, "matmul_bf16")):
+            a = randn_on((n, n), dev, DENSE_SEED + 2, dtype)
+            b = randn_on((n, n), dev, DENSE_SEED + 3, dtype)
+            case, tag = f"{n}^2", f"{kind}_{n}"
+            torch.cuda.synchronize()
+            mm.MATMUL_LAUNCHES = 0
+            c = mm.matmul_pallas(a, b)
+            torch.cuda.synchronize()
+            counts[kind] = counts.get(kind, 0) + mm.MATMUL_LAUNCHES
+            if c.dtype != dtype or c.shape != (n, n):
+                raise AssertionError(f"matmul {case}: {c.dtype} {c.shape}")
+            abs_prod = None
+            if dtype == torch.float32:
+                oracle = a.double() @ b.double()
+                abs_prod = a.double().abs() @ b.double().abs()
+                ratio = fp32_bound_ratio(c, oracle, abs_prod, n)
+                in_tol = torch.allclose(c.double(), oracle, rtol=TOL_MM[0],
+                                        atol=TOL_MM[1])
+                ok = ratio < 1 and (n > 1024 or in_tol)
+                torch.backends.cuda.matmul.allow_tf32 = True
+                c32 = torch.matmul(a, b)
+                torch.cuda.synchronize()
+                torch.backends.cuda.matmul.allow_tf32 = False
+                tf32_ratio = fp32_bound_ratio(c32, oracle, abs_prod, n)
+                tf32_in_tol = torch.allclose(c32.double(), oracle,
+                                             rtol=TOL_MM[0], atol=TOL_MM[1])
+                if tf32_ratio < 1 or (n <= 1024 and tf32_in_tol):
+                    raise AssertionError(
+                        f"matmul {case}: torch.matmul with TF32 on passes "
+                        f"(bound ratio {tf32_ratio}, within TOL_MM "
+                        f"{tf32_in_tol}); the check cannot tell FP32 from "
+                        "TF32")
+                rec.update({f"{tag}_fp32_bound_ratio": ratio,
+                            f"{tag}_within_tol_mm": in_tol,
+                            f"{tag}_tf32_control_bound_ratio": tf32_ratio,
+                            f"{tag}_tf32_control_max_abs_err":
+                            max_err(c32.double(), oracle),
+                            f"{tag}_tf32_control_within_tol_mm": tf32_in_tol})
+                del c32
+            else:
+                oracle = (a.float() @ b.float()).double()
+                ok = torch.allclose(c.double(), oracle, rtol=TOL_MM_BF16,
+                                    atol=TOL_MM_BF16)
+            err = max_err(c.double(), oracle)
+            if not ok:
+                raise AssertionError(f"matmul {case} {dtype}: off its "
+                                     f"oracle by {err}")
+            del c, oracle
+
+            def check(got, want, what):
+                e = max_err(got.float(), want.float())
+                if abs_prod is not None:
+                    # two float32 sums of the same products, each within
+                    # the bound: within twice the bound of each other
+                    r = fp32_bound_ratio(got, want.double(), abs_prod, n)
+                    if r >= 2:
+                        raise AssertionError(f"{what}: {r} times the float32 "
+                                             f"bound, max |diff| {e}")
+                elif not torch.allclose(got.float(), want.float(),
+                                        rtol=TOL_MM_BF16, atol=TOL_MM_BF16):
+                    raise AssertionError(f"{what}: max |diff| {e}")
+                return e
+
+            reps = 20 if n == 1024 else 3
+            t = kernel_case(kind, case, lambda: mm.matmul_pallas(a, b),
+                            lambda: mm.matmul_pallas_torch(a, b), check,
+                            kernel_times, reps=reps)
+            lib = time_ms(lambda: torch.matmul(a, b), reps=reps)
+            WORK[(kind, case)] = (3 * nbytes(a), 2 * n ** 3)
+            if n == DENSE_N:
+                LIBRARY_MS[kind] = lib
+            rec.update({f"{tag}_ms": t[0], f"{tag}_plain_ms": t[1],
+                        f"{tag}_torch_matmul_ms": lib,
+                        f"{tag}_max_abs_err_vs_plain": t[2],
+                        f"{tag}_max_abs_err_vs_oracle": err,
+                        f"{tag}_tflop_s": 2 * n ** 3 / (t[0] * 1e-3) / 1e12})
+            del a, b, abs_prod
+    launches["matmul"] = {**counts,
+                          "need": {"matmul": 2, "matmul_bf16": 2}}
+    torch.cuda.synchronize()
+    emit({"phase": "matmul", **launches["matmul"],
+          "tf32": torch.backends.cuda.matmul.allow_tf32, **rec})
+
+
+def box_sum64(a, r: int):
+    """float64 2-D box sum of radius r with a zero halo (the oracle)."""
+    from libhpc_tpu_torch.ops import stencil
+
+    return stencil.blur2d_pallas_torch(a.double(), r)
+
+
+def stencil_phase(dev, kernel_times, launches):
+    """K19 blur2d_pallas on 8192^2, r = 8 (the path: one launch) against
+    its plain version and a float64 box sum; the plain blur2d, the library
+    yardstick F.avg_pool2d (count_include_pad, times (2r+1)^2; checked
+    against K19 at 1e-3) and one F.conv2d with a ones weight (cuDNN, TF32
+    off) timed beside it; poisson5_apply on 2048^2
+    and poisson7_apply on 128^3 against csr_spmv of poisson2d/poisson3d."""
+    import torch
+
+    from libhpc_tpu_torch.bench import matrices
+    from libhpc_tpu_torch.ops import spmv, stencil
+    from libhpc_tpu_torch.sparse.csr import CSR
+
+    r = 8
+    a = rand_on((DENSE_N, DENSE_N), dev, DENSE_SEED + 4)
+    torch.cuda.synchronize()
+    stencil.BLUR_LAUNCHES = 0
+    out = stencil.blur2d_pallas(a, r)
+    torch.cuda.synchronize()
+    launches["stencil"] = {"blur": stencil.BLUR_LAUNCHES,
+                           "need": {"blur": 1}}
+    oracle = box_sum64(a, r)
+    err64 = max_err(out.double(), oracle)
+    if not torch.allclose(out.double(), oracle, rtol=TOL_PLAIN, atol=0):
+        raise AssertionError(f"blur2d_pallas: off float64 by {err64}")
+    del oracle
+    case = "8192^2/r8"
+    t = kernel_case("blur", case, lambda: stencil.blur2d_pallas(a, r),
+                    lambda: stencil.blur2d_pallas_torch(a, r), close_plain,
+                    kernel_times, reps=10)
+    WORK[("blur", case)] = (nbytes(a, out), 2 * (2 * r + 1) * a.numel())
+    cum = stencil.blur2d(a, r)
+    err_cum = max_err(cum, out)
+    assert_close(cum, out, "blur2d (cumsum form) vs K19", 1e-3, 1e-3)
+    del cum
+    t_cum = time_ms(lambda: stencil.blur2d(a, r), reps=10)
+    w = torch.ones((1, 1, 2 * r + 1, 2 * r + 1), device=dev)
+    a4 = a[None, None]
+
+    def pool():
+        # the zero-padded box mean over (2r+1)^2 cells, times their count
+        return torch.nn.functional.avg_pool2d(
+            a4, 2 * r + 1, 1, r, count_include_pad=True) * (2 * r + 1) ** 2
+
+    def conv():
+        return torch.nn.functional.conv2d(a4, w, padding=r)
+
+    got = pool()[0, 0]
+    err_pool = max_err(got, out)
+    assert_close(got, out, "avg_pool2d box sum vs K19", 1e-3, 1e-3)
+    LIBRARY_MS["blur"] = time_ms(pool, reps=10)
+    err_conv = max_err(conv()[0, 0], out)
+    t_conv = time_ms(conv, reps=10)
+    del out, w, a4, got
+
+    def vs_csr(A, u, got, what):
+        y = spmv.csr_spmv(CSR.from_scipy(A, device=dev), u.reshape(-1))
+        if not torch.allclose(got.reshape(-1), y, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"{what}: max |diff| "
+                                 f"{max_err(got.reshape(-1), y)} vs csr_spmv")
+        return max_err(got.reshape(-1), y)
+
+    u2 = a[:2048, :2048].contiguous()
+    e5 = vs_csr(matrices.poisson2d(2048), u2, stencil.poisson5_apply(u2),
+                "poisson5_apply 2048^2")
+    u3 = a.reshape(-1)[:128 ** 3].reshape(128, 128, 128)
+    e7 = vs_csr(matrices.poisson3d(128), u3, stencil.poisson7_apply(u3),
+                "poisson7_apply 128^3")
+    rec = {"poisson5_2048_ms": time_ms(lambda: stencil.poisson5_apply(u2)),
+           "poisson7_128_ms": time_ms(lambda: stencil.poisson7_apply(u3))}
+    del a, u2, u3
+    torch.cuda.synchronize()
+    emit({"phase": "stencil", "shape": [DENSE_N, DENSE_N], "radius": r,
+          **launches["stencil"], "blur2d_pallas_ms": t[0],
+          "plain_ms": t[1], "max_abs_err_vs_plain": t[2],
+          "max_abs_err_vs_float64": err64, "blur2d_cumsum_ms": t_cum,
+          "blur2d_cumsum_max_abs_err_vs_k19": err_cum,
+          "avg_pool2d_ms": LIBRARY_MS["blur"],
+          "avg_pool2d_max_abs_err_vs_k19": err_pool, "conv2d_ms": t_conv,
+          "conv2d_max_abs_err_vs_k19": err_conv, "gb_per_s": WORK[("blur", case)][0] / (t[0] * 1e-3)
+          / 1e9, "poisson5_max_abs_err_vs_csr": e5,
+          "poisson7_max_abs_err_vs_csr": e7, **rec})
+
+
+def grid_phase(dev):
+    """The particle-write workload (bench/corpus.py:498-520): 2^20 seeded
+    unit writes over 4096^2 into BlockGrid.create((256, 256), 16, 65536),
+    touched in raster and in morton order, written by write_batch and
+    write_batch_dense and read back; then a NestedGrid over the same
+    domain. Every dense image equals a dense index_put_(accumulate=True)
+    oracle exactly (unit writes sum exactly); writes/s from the host clock
+    (median of 5, ending in a sync)."""
+    import torch
+
+    from libhpc_tpu_torch.sparse.grid import BlockGrid, NestedGrid
+
+    n = 1 << 20
+    g = torch.Generator(device=dev)
+    g.manual_seed(DENSE_SEED + 5)
+    xs = torch.randint(0, 4096, (n,), device=dev, generator=g,
+                       dtype=torch.int32)
+    ys = torch.randint(0, 4096, (n,), device=dev, generator=g,
+                       dtype=torch.int32)
+    vals = torch.ones(n, device=dev)
+    want = torch.zeros((4096, 4096), device=dev).index_put_(
+        (ys.long(), xs.long()), vals, accumulate=True)
+    n_tiles = int((want.view(256, 16, 256, 16).sum((1, 3)) > 0).sum())
+    grid0 = BlockGrid.create((256, 256), block_size=16, capacity=65536,
+                             device=dev)
+    rec = {}
+    for order in ("raster", "morton"):
+        grid = grid0.touch_batch(xs, ys, order=order)
+        if int(grid.n_allocated()) != n_tiles:
+            raise AssertionError(f"touch {order}: {int(grid.n_allocated())} "
+                                 f"tiles, expected {n_tiles}")
+        for name, fn in (("write_batch", grid.write_batch),
+                         ("write_batch_dense", grid.write_batch_dense)):
+            if not torch.equal(fn(xs, ys, vals).todense(), want):
+                raise AssertionError(f"{order} {name}: differs from the "
+                                     "dense oracle")
+        written = grid.write_batch(xs, ys, vals)
+        if not torch.equal(written.read_batch(xs, ys), want[ys, xs]):
+            raise AssertionError(f"{order} read_batch differs")
+        rec[f"touch_{order}_ms"] = wall_ms(
+            lambda o=order: grid0.touch_batch(xs, ys, order=o), reps=5)
+        if order == "raster":
+            rec["write_batch_ms"] = wall_ms(
+                lambda: grid.write_batch(xs, ys, vals), reps=5)
+            rec["write_batch_dense_ms"] = wall_ms(
+                lambda: grid.write_batch_dense(xs, ys, vals), reps=5)
+            rec["read_batch_ms"] = wall_ms(
+                lambda: written.read_batch(xs, ys), reps=5)
+    del grid, written
+    nested0 = NestedGrid.create((16, 16), mid_grid=(16, 16), block_size=16,
+                                cap_mid=256, cap_leaf=65536, device=dev)
+    nested = nested0.touch_batch(xs, ys)
+    if (int(nested.n_leaf) != n_tiles
+            or not torch.equal(nested.write_batch(xs, ys, vals).todense(),
+                               want)):
+        raise AssertionError("NestedGrid differs from the dense oracle")
+    rec["nested_touch_ms"] = wall_ms(lambda: nested0.touch_batch(xs, ys),
+                                     reps=5)
+    rec["nested_write_batch_ms"] = wall_ms(
+        lambda: nested.write_batch(xs, ys, vals), reps=5)
+    del nested, nested0, grid0, want
+    torch.cuda.synchronize()
+    emit({"phase": "grid", "writes": n, "extent": [4096, 4096],
+          "tiles_touched": n_tiles, "equal_to_dense_oracle": True, **rec,
+          **{f"{k[:-3]}_mwrites_per_s": n / (v * 1e-3) / 1e6
+             for k, v in rec.items()}})
 
 
 def sort_split_phase(dev) -> None:
@@ -1481,7 +1944,7 @@ def check_family_launches(launches: dict) -> None:
 
 
 def run(dev):
-    """Phases 1-22 on `dev`; returns the {"kernels": [...]} record."""
+    """Phases 1-27 on `dev`; returns the {"kernels": [...]} record."""
     import torch
 
     from libhpc_tpu_torch.bench import matrices
@@ -1493,7 +1956,8 @@ def run(dev):
         "sort_chunk_staged", "sort_merge_level", "sort_merge_pair",
         "histogram", "sort_chunk_kv", "sort_chunk_kv_staged",
         "sort_merge_kv_level", "sort_merge_kv_pair", "scan_int",
-        "scan_f32")}
+        "scan_f32", "row_sum", "transpose", "matmul", "matmul_bf16",
+        "blur")}
     sb_cant = A_cant = None
     for name in ("cant", "pwtk"):
         t0 = time.perf_counter()
@@ -1539,6 +2003,11 @@ def run(dev):
     kv_kernels_phase(dev, kernel_times)
     scan_phase(keys, dev, kernel_times, family)
     del keys
+    reduce_phase(dev, kernel_times, family)
+    transpose_phase(dev, kernel_times, family)
+    matmul_phase(dev, kernel_times, family)
+    stencil_phase(dev, kernel_times, family)
+    grid_phase(dev)
     check_family_launches(family)
     sort_split_phase(dev)
     library_phase(dev)
@@ -1552,7 +2021,7 @@ def run(dev):
         moved = sum(WORK[(kind, c)][0] for c in cases)
         ops = sum(WORK[(kind, c)][1] for c in cases)
         t_bytes = moved / PEAK_BYTES_S * 1e3
-        t_ops = ops / PEAK_F32_OPS_S * 1e3
+        t_ops = ops / OPS_PEAK.get(kind, PEAK_F32_OPS_S) * 1e3
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(e for _, _, e in
@@ -1571,6 +2040,7 @@ def run(dev):
     chunk_src = "libhpc_tpu_torch/csrc/sort_chunk.cu"
     scan_src = "libhpc_tpu_torch/csrc/scan.cu"
     dia_src = "libhpc_tpu_torch/csrc/dia.cu"
+    mm_src = "libhpc_tpu_torch/csrc/matmul.cu"
     cant = ["cant/float32"]
     return {"kernels": [
         entry("near", "sbell_near", near_src,
@@ -1619,6 +2089,20 @@ def run(dev):
               family["scan"]["scan_f32"], ["500M"]),
         entry("scan_int", "scan_int", scan_src, "libhpc_tpu/ops/scan.py:106",
               family["scan"]["scan_int"], ["500M"]),
+        entry("row_sum", "row_sum", "libhpc_tpu_torch/csrc/reduce.cu",
+              "libhpc_tpu/ops/reduce.py:63", family["reduce"]["row_sum"],
+              ["8192^2"]),
+        entry("transpose", "transpose", "libhpc_tpu_torch/csrc/transpose.cu",
+              "libhpc_tpu/ops/transpose.py:26",
+              family["transpose"]["transpose"], ["8192^2"]),
+        entry("matmul", "matmul", mm_src, "libhpc_tpu/ops/matmul.py:23",
+              family["matmul"]["matmul"], ["8192^2"]),
+        entry("matmul_bf16", "matmul_bf16", mm_src,
+              "libhpc_tpu/ops/matmul.py:23", family["matmul"]["matmul_bf16"],
+              ["8192^2"]),
+        entry("blur", "blur2d", "libhpc_tpu_torch/csrc/blur2d.cu",
+              "libhpc_tpu/ops/stencil.py:118", family["stencil"]["blur"],
+              ["8192^2/r8"]),
     ]}
 
 

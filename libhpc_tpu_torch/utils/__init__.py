@@ -1,0 +1,1 @@
+from libhpc_tpu_torch.utils.morton import morton2d_encode, morton2d_decode  # noqa: F401

@@ -13,13 +13,16 @@ import torch
 
 
 def _port_class(name):
+    from libhpc_tpu_torch import containers
     from libhpc_tpu_torch.ops import sellp, spmv_dia, spmv_sell
-    from libhpc_tpu_torch.sparse import csr, dia, ell, sbell
+    from libhpc_tpu_torch.sparse import csr, dia, ell, grid, sbell
 
     return {"CSR": csr.CSR, "SBELL": sbell.SBELL, "FarPane": sbell.FarPane,
             "FarBlocks": sbell.FarBlocks, "DIA": dia.DIA, "ELL": ell.ELL,
             "DiaPallas": spmv_dia.DiaPallas, "SELL": spmv_sell.SELL,
-            "SELLSplit": spmv_sell.SELLSplit, "SELLP": sellp.SELLP}[name]
+            "SELLSplit": spmv_sell.SELLSplit, "SELLP": sellp.SELLP,
+            "HaloArray": containers.HaloArray, "BlockGrid": grid.BlockGrid,
+            "NestedGrid": grid.NestedGrid}[name]
 
 
 def port_of(ref):

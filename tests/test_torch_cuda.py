@@ -797,3 +797,196 @@ def test_entry_points_default_to_the_card(cuda_device):
     assert kv.merge_argsort_u32(x, 10, 11)[1].device.type == "cuda"
     assert scan.exclusive_scan_pallas(x.view(np.int32)).device.type == "cuda"
     assert sort.is_sorted(np.sort(x)).device.type == "cuda"
+
+
+# ---- the dense-array, stencil and grid layer (K16-K19) ---------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+@pytest.mark.parametrize("shape", [(1, 1), (8, 128), (100, 300), (257, 129),
+                                   (3, 1001), (4097, 33), (2, 65_537)])
+def test_row_sum_kernel_matches_plain(cuda_device, shape, dtype):
+    """K16 on ragged shapes (1001 and 33 columns take the kernel's scalar
+    path, the others its 16-byte loads): int32 exactly (wrapping), floats
+    to 1e-5 of the plain version (bf16: one bf16 rounding)."""
+    from libhpc_tpu_torch.ops import reduce as red
+
+    g = torch.Generator(device=cuda_device).manual_seed(shape[0])
+    if dtype == torch.int32:
+        x = torch.randint(-2**31, 2**31, shape, dtype=dtype,
+                          device=cuda_device, generator=g)
+    else:
+        x = torch.rand(shape, device=cuda_device, generator=g).to(dtype)
+    n0 = red.ROW_SUM_LAUNCHES
+    got = red.row_sum_pallas(x)
+    assert red.ROW_SUM_LAUNCHES == n0 + 1
+    assert got.dtype == dtype and got.shape == (shape[0],)
+    want = red.row_sum_pallas_torch(x)
+    if dtype == torch.int32:
+        assert torch.equal(got, want)
+    elif dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                                   atol=0)
+    else:
+        _close(got, want)
+        torch.testing.assert_close(got.double(), x.double().sum(1),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32,
+                                   torch.bfloat16, torch.int8, torch.float64])
+@pytest.mark.parametrize("shape", [(1, 1), (31, 33), (100, 300), (257, 513),
+                                   (1000, 3), (2048, 1024)])
+def test_transpose_kernel_matches_plain(cuda_device, shape, dtype):
+    """K17 exactly against x.t() for words of 1, 2, 4 and 8 bytes."""
+    from libhpc_tpu_torch.ops import transpose as tr
+
+    x = torch.arange(shape[0] * shape[1], device=cuda_device).reshape(shape)
+    x = (x * 7 + 3).to(dtype)
+    n0 = tr.TRANSPOSE_LAUNCHES
+    got = tr.transpose_pallas(x)
+    assert tr.TRANSPOSE_LAUNCHES == n0 + 1
+    assert got.shape == shape[::-1] and got.dtype == dtype
+    assert torch.equal(got, tr.transpose_pallas_torch(x))
+
+
+def test_transpose_routing(cuda_device):
+    """transpose(): every CUDA tensor of a 1/2/4/8-byte dtype goes through
+    K17, whatever its shape."""
+    from libhpc_tpu_torch.ops import transpose as tr
+
+    cases = [((2048, 1024), torch.float32), ((1024, 1000), torch.float32),
+             ((1024, 1024), torch.int32), ((300, 100), torch.float32),
+             ((77, 130), torch.bfloat16), ((33, 65), torch.int64),
+             ((9, 17), torch.uint8)]
+    for shape, dtype in cases:
+        x = torch.arange(shape[0] * shape[1], device=cuda_device).reshape(
+            shape).to(dtype)
+        n0 = tr.TRANSPOSE_LAUNCHES
+        got = tr.transpose(x)
+        assert tr.TRANSPOSE_LAUNCHES == n0 + 1, (shape, dtype)
+        assert got.is_contiguous() and torch.equal(got, x.t())
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 8, 8), (100, 200, 50),
+                                   (256, 512, 256), (300, 300, 300),
+                                   (129, 1, 7), (1, 1000, 1), (130, 0, 5),
+                                   (1030, 770, 513)])
+def test_matmul_kernel_matches_plain(cuda_device, m, k, n):
+    """K18 in float32 against its plain version and a float64 product at
+    the reference test's tolerance (rtol 1e-4, atol 1e-3); bfloat16 and
+    float16 against the float32 product of the rounded operands, to one
+    rounding of the output (rtol 1e-2). Operands are mean-zero, so that
+    rounding errors do not average out and TF32 would miss the tolerance."""
+    from libhpc_tpu_torch.ops import matmul as mm
+
+    g = torch.Generator(device=cuda_device).manual_seed(m * 7 + n)
+    a = torch.randn((m, k), device=cuda_device, generator=g)
+    b = torch.randn((k, n), device=cuda_device, generator=g)
+    n0 = mm.MATMUL_LAUNCHES
+    got = mm.matmul_pallas(a, b)
+    assert mm.MATMUL_LAUNCHES == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    torch.testing.assert_close(got, mm.matmul_pallas_torch(a, b), rtol=1e-4,
+                               atol=1e-3)
+    torch.testing.assert_close(got.double(), a.double() @ b.double(),
+                               rtol=1e-4, atol=1e-3)
+    for dt in (torch.bfloat16, torch.float16):
+        ah, bh = a.to(dt), b.to(dt)
+        got = mm.matmul_pallas(ah, bh)
+        assert got.dtype == dt
+        torch.testing.assert_close(got.float(), ah.float() @ bh.float(),
+                                   rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("r", [0, 1, 4, 8, 64])
+@pytest.mark.parametrize("shape", [(1, 1), (64, 64), (100, 200), (300, 129),
+                                   (1000, 70), (65, 4097)])
+def test_blur2d_kernel_matches_plain(cuda_device, shape, r):
+    """K19 adds in its plain version's order: equal to 1e-5; and within
+    1e-5 of a float64 box sum."""
+    from libhpc_tpu_torch.ops import stencil
+
+    g = torch.Generator(device=cuda_device).manual_seed(shape[0] + r)
+    a = torch.rand(shape, device=cuda_device, generator=g)
+    n0 = stencil.BLUR_LAUNCHES
+    got = stencil.blur2d_pallas(a, r)
+    assert stencil.BLUR_LAUNCHES == n0 + 1
+    _close(got, stencil.blur2d_pallas_torch(a, r))
+    exact = stencil.blur2d_pallas_torch(a.double(), r)
+    torch.testing.assert_close(got.double(), exact, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, stencil.blur2d(a, r), rtol=1e-3,
+                               atol=1e-3)
+
+
+def test_dense_layer_wrappers_raise_on_bad_input(cuda_device):
+    from libhpc_tpu_torch.ops import matmul as mm
+    from libhpc_tpu_torch.ops import reduce as red
+    from libhpc_tpu_torch.ops import stencil
+    from libhpc_tpu_torch.ops import transpose as tr
+
+    x = torch.rand((64, 64), device=cuda_device)
+    with pytest.raises(TypeError):
+        red.row_sum_pallas(x.double())
+    with pytest.raises(TypeError):
+        tr.transpose_pallas(x.to(torch.complex128))
+    with pytest.raises(TypeError):
+        mm.matmul_pallas(x, x.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        mm.matmul_pallas(x.double(), x.double())
+    with pytest.raises(ValueError):
+        mm.matmul_pallas(x, x.cpu())
+    with pytest.raises(TypeError):
+        stencil.blur2d_pallas(x.double())
+    with pytest.raises(ValueError):
+        stencil.blur2d_pallas(x, stencil.MAX_KERNEL_RADIUS + 1)
+
+
+def test_grid_on_card_matches_dense_oracle(cuda_device):
+    """BlockGrid and NestedGrid on the card: unit writes (exact sums) equal
+    a dense index_put_(accumulate=True) image, in raster and morton order,
+    through write_batch and write_batch_dense."""
+    from libhpc_tpu_torch.sparse.grid import BlockGrid, NestedGrid
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    n = 1 << 16
+    xs = torch.randint(0, 512, (n,), device=cuda_device, generator=g)
+    ys = torch.randint(0, 512, (n,), device=cuda_device, generator=g)
+    ones = torch.ones(n, device=cuda_device)
+    want = torch.zeros((512, 512), device=cuda_device).index_put_(
+        (ys, xs), ones, accumulate=True)
+    for order in ("raster", "morton"):
+        grid = BlockGrid.create((32, 32), block_size=16, capacity=1024)
+        assert grid.device.type == "cuda"
+        grid = grid.touch_batch(xs, ys, order=order)
+        assert int(grid.n_allocated()) == int((want.view(32, 16, 32, 16)
+                                               .sum((1, 3)) > 0).sum())
+        assert torch.equal(grid.write_batch(xs, ys, ones).todense(), want)
+        assert torch.equal(grid.write_batch_dense(xs, ys, ones).todense(),
+                           want)
+    ng = NestedGrid.create((4, 4), mid_grid=(8, 8), block_size=16,
+                           cap_mid=16, cap_leaf=1024)
+    ng = ng.touch_batch(xs, ys).write_batch(xs, ys, ones)
+    assert torch.equal(ng.todense(), want)
+    assert torch.equal(ng.read_batch(xs, ys), want[ys, xs])
+
+
+def test_dense_layer_entry_points_default_to_the_card(cuda_device):
+    """numpy inputs given no device land on the card."""
+    from libhpc_tpu_torch.containers import HaloArray
+    from libhpc_tpu_torch.ops import matmul as mm
+    from libhpc_tpu_torch.ops import reduce as red
+    from libhpc_tpu_torch.ops import stencil
+    from libhpc_tpu_torch.ops import transpose as tr
+    from libhpc_tpu_torch.utils.morton import morton2d_encode
+
+    a = np.random.default_rng(0).random((64, 48)).astype(np.float32)
+    for out in (red.row_sum_pallas(a), red.tree_reduce_sum(a),
+                red.segment_sum(a[:, 0], np.arange(64) % 4, 4),
+                tr.transpose_pallas(a), tr.transpose(a),
+                mm.matmul_pallas(a, a.T), stencil.blur2d_pallas(a),
+                stencil.blur2d(a), stencil.poisson5_apply(a),
+                morton2d_encode(np.arange(4), np.arange(4)),
+                HaloArray.wrap(a, 1).data):
+        assert out.device.type == "cuda"

@@ -48,6 +48,14 @@ MODULES = [
     "libhpc_tpu_torch.ops.sort_merge",
     "libhpc_tpu_torch.ops.sort_merge_kv",
     "libhpc_tpu_torch.ops.scan",
+    "libhpc_tpu_torch.ops.reduce",
+    "libhpc_tpu_torch.ops.transpose",
+    "libhpc_tpu_torch.ops.matmul",
+    "libhpc_tpu_torch.ops.stencil",
+    "libhpc_tpu_torch.containers",
+    "libhpc_tpu_torch.sparse.grid",
+    "libhpc_tpu_torch.utils",
+    "libhpc_tpu_torch.utils.morton",
     "libhpc_tpu_torch.bench",
     "libhpc_tpu_torch.bench.matrices",
 ]
@@ -196,6 +204,31 @@ def test_cpu_tensors_take_the_plain_path_kv_and_scan(monkeypatch):
             scan.SCAN_F32_LAUNCHES, scan.SCAN_INT_LAUNCHES) == (0,) * 5
 
 
+def test_cpu_tensors_take_the_plain_path_dense_layer(monkeypatch):
+    """K16-K19's wrappers on CPU tensors equal their plain versions and
+    leave their launch counters at 0; transpose() on a CPU tensor never
+    reaches K17's wrapper."""
+    from libhpc_tpu_torch.ops import matmul as mm
+    from libhpc_tpu_torch.ops import reduce as red
+    from libhpc_tpu_torch.ops import stencil
+    from libhpc_tpu_torch.ops import transpose as tr
+
+    for mod, name in ((red, "ROW_SUM_LAUNCHES"), (tr, "TRANSPOSE_LAUNCHES"),
+                      (mm, "MATMUL_LAUNCHES"), (stencil, "BLUR_LAUNCHES")):
+        monkeypatch.setattr(mod, name, 0)
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        (1024, 2048)).astype(np.float32))
+    assert torch.equal(red.row_sum_pallas(x), red.row_sum_pallas_torch(x))
+    assert torch.equal(tr.transpose_pallas(x), tr.transpose_pallas_torch(x))
+    assert torch.equal(tr.transpose(x), x.t())
+    a, b = x[:100, :300], x[300:600, :50]
+    assert torch.equal(mm.matmul_pallas(a, b), mm.matmul_pallas_torch(a, b))
+    assert torch.equal(stencil.blur2d_pallas(x[:200, :300]),
+                       stencil.blur2d_pallas_torch(x[:200, :300]))
+    assert (red.ROW_SUM_LAUNCHES, tr.TRANSPOSE_LAUNCHES, mm.MATMUL_LAUNCHES,
+            stencil.BLUR_LAUNCHES) == (0, 0, 0, 0)
+
+
 def _aims_at_the_card(fn):
     """fn() with no device given must aim at "cuda": on a machine without
     a card it raises (torch's "not compiled with CUDA" or "no CUDA GPUs"),
@@ -215,7 +248,11 @@ def _builders():
     A = matrices.poisson2d(32)
     dia_cpu = DIA.from_scipy(A, device="cpu")
     ell_cpu = ELL.from_scipy(A, device="cpu")
+    from libhpc_tpu_torch.sparse import BlockGrid, NestedGrid
+
     return {
+        "BlockGrid.create": lambda: BlockGrid.create((4, 4), 8, 16),
+        "NestedGrid.create": lambda: NestedGrid.create((2, 2), (2, 2), 8),
         "CSR.from_scipy": lambda: CSR.from_scipy(A),
         "CSR.from_dense": lambda: CSR.from_dense(A.toarray()),
         "SBELL.from_scipy": lambda: SBELL.from_scipy(A),
@@ -230,7 +267,7 @@ def _builders():
     }
 
 
-BUILDERS = ["CSR.from_scipy", "CSR.from_dense", "SBELL.from_scipy",
+BUILDERS = ["BlockGrid.create", "NestedGrid.create", "CSR.from_scipy", "CSR.from_dense", "SBELL.from_scipy",
             "DIA.from_scipy", "ELL.from_scipy", "auto_format",
             "sell_from_ell", "sell_from_scipy", "sellp_from_scipy",
             "DiaPallas.from_dia"]
@@ -256,12 +293,54 @@ def _numpy_ops():
         "exclusive_scan": lambda: scan.exclusive_scan(x),
         "inclusive_scan": lambda: scan.inclusive_scan(x),
         "exclusive_scan_pallas": lambda: scan.exclusive_scan_pallas(x),
+        **_dense_layer_ops(),
+    }
+
+
+def _dense_layer_ops():
+    from libhpc_tpu_torch.containers import HaloArray
+    from libhpc_tpu_torch.ops import matmul as mm
+    from libhpc_tpu_torch.ops import reduce as red
+    from libhpc_tpu_torch.ops import stencil
+    from libhpc_tpu_torch.ops import transpose as tr
+    from libhpc_tpu_torch.utils import morton
+
+    a = np.random.default_rng(2).random((40, 24)).astype(np.float32)
+    ids = np.arange(40) % 3
+    c = np.arange(16, dtype=np.uint32)
+    return {
+        "row_sum_pallas": lambda: red.row_sum_pallas(a),
+        "tree_reduce_sum": lambda: red.tree_reduce_sum(a),
+        "segment_sum": lambda: red.segment_sum(a, ids, 3),
+        "segment_max": lambda: red.segment_max(a, ids, 3),
+        "segment_min": lambda: red.segment_min(a, ids, 3),
+        "transpose_pallas": lambda: tr.transpose_pallas(a),
+        "transpose": lambda: tr.transpose(a),
+        "matmul_pallas": lambda: mm.matmul_pallas(a, a.T),
+        "blur2d_pallas": lambda: stencil.blur2d_pallas(a, 2),
+        "blur_x": lambda: stencil.blur_x(a, 2),
+        "blur2d": lambda: stencil.blur2d(a, 2),
+        "box_sum_1d": lambda: stencil.box_sum_1d(a, 2, 0),
+        "poisson5_apply": lambda: stencil.poisson5_apply(a),
+        "poisson7_apply": lambda: stencil.poisson7_apply(a[:8, :8, None]),
+        "HaloArray.wrap": lambda: HaloArray.wrap(a, 1),
+        "HaloArray.from_padded": lambda: HaloArray.from_padded(a, 1),
+        "morton2d_encode": lambda: morton.morton2d_encode(c, c),
+        "morton2d_decode": lambda: morton.morton2d_decode(c),
+        "morton3d_encode": lambda: morton.morton3d_encode(c, c, c),
+        "morton3d_decode": lambda: morton.morton3d_decode(c),
     }
 
 
 NUMPY_OPS = ["u32_bits", "is_sorted", "sort_u32", "merge_sort_u32",
              "merge_sort_kv_u32", "merge_argsort_u32", "exclusive_scan",
-             "inclusive_scan", "exclusive_scan_pallas"]
+             "inclusive_scan", "exclusive_scan_pallas", "row_sum_pallas",
+             "tree_reduce_sum", "segment_sum", "segment_max", "segment_min",
+             "transpose_pallas", "transpose", "matmul_pallas",
+             "blur2d_pallas", "blur_x", "blur2d", "box_sum_1d",
+             "poisson5_apply", "poisson7_apply", "HaloArray.wrap",
+             "HaloArray.from_padded", "morton2d_encode", "morton2d_decode",
+             "morton3d_encode", "morton3d_decode"]
 
 
 @pytest.mark.parametrize("name", NUMPY_OPS)
