@@ -19,7 +19,9 @@ merge_sort_kv_u32 on 100M) and the exclusive scans on 500M elements. Then
 the dense-array, stencil and grid layer at the corpus's sizes: row sums,
 the transpose and the radius-8 box blur on 8192^2, the matmul at 1024^2
 and 8192^2, the Poisson stencils, and 2^20 particle writes into the sparse
-grids.
+grids. Last, the micro-architecture suites: the harness's device-memory
+probes, the memory/compute overlap sweep at its 512 MB and every probe of
+bench/microarch.py, each kernel checked again past the 50 MB L2.
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -105,15 +107,28 @@ Phases, one JSON line each:
                raster and morton order, write_batch, write_batch_dense and
                read_batch each equal to a dense index_put_ oracle, and a
                NestedGrid over the same domain; writes/s
- 25 launches   the kernel launch counts of each path, which must cover
-               every call it made (the sort, kv sort, scan, histogram and
-               dense-layer paths: exactly the launches their sizes call
-               for); each count is zeroed just before its path runs and
-               read just after, and the launches made to compare a kernel
-               with its plain version are not counted
- 26 sort_split one 500M sort profiled (CUPTI): device time of K8, of K9
+ 25 hbm        measure_hbm_bandwidth (in-place x *= c on 128 MB) and
+               measure_hbm_read_bandwidth (sums of 512 MB) beside the data
+               sheet's 3.35 TB/s
+ 26 overlap    overlap_chip.run at 512 MB: K20 over every w of WS, t(w),
+               stream GB/s, t_unit, w* and overlap_efficiency; fails if
+               t(64) <= t(0); K20 against its plain version at w = 0 and
+               64, with times
+ 27 microarch  every bench of microarch.ALL at its defaults (records with
+               the reference's keys, no error); K21a (S = 1024, 1024
+               tiles), K21b (2^17 gathers of 4 KB rows, G = 256), K21c and
+               K21d (2^20 rows) each exactly against its plain version,
+               times beside torch.take_along_dim and index_select
+ 28 launches   the kernel launch counts of each path, which must cover
+               every call it made (the sort, kv sort, scan, histogram,
+               dense-layer and micro-architecture paths: exactly the
+               launches their sizes call for); each count is zeroed just
+               before its path runs and read just after, and the launches
+               made to compare a kernel with its plain version are not
+               counted
+ 29 sort_split one 500M sort profiled (CUPTI): device time of K8, of K9
                and of the torch ops of the merge-path search
- 27 library    torch.sparse CSR matvecs of the SpMV kernels' matrices,
+ 30 library    torch.sparse CSR matvecs of the SpMV kernels' matrices,
                the library yardstick of K1-K7 (after every profile)
 
 Then a {"kernels": [...]} line (every kernel with its time, its plain
@@ -122,7 +137,8 @@ operations over the card's peak for their type: 67 TFLOP/s in float32, 989
 TFLOP/s for bfloat16 on the tensor cores -- and the time of one PyTorch
 call computing the same function: a torch.sparse CSR matvec for the SpMV
 kernels, torch.sort for the sorts, torch.bincount, torch.cumsum, torch.sum,
-x.t().contiguous(), torch.matmul, F.avg_pool2d), the `nvidia-smi` name and
+x.t().contiguous(), torch.matmul, F.avg_pool2d, torch.take_along_dim,
+index_select), the `nvidia-smi` name and
 power limit, and last {"ok": true, "device": {...}}.
 Any failure raises: the script exits non-zero and prints no result. It
 needs CUDA and the repository beside it.
@@ -1866,6 +1882,174 @@ def grid_phase(dev):
              for k, v in rec.items()}})
 
 
+def hbm_phase(dev) -> None:
+    """The harness's two speed-of-light probes beside the data sheet: the
+    in-place x *= c stream on 128 MB (read + write) and full sums of
+    512 MB (read only), delta-method CUDA-event times."""
+    from libhpc_tpu_torch.bench import harness
+
+    mix = harness.measure_hbm_bandwidth(device=dev)
+    read = harness.measure_hbm_read_bandwidth(device=dev)
+    emit({"phase": "hbm", "stream_rw_gb_per_s": mix / 1e9,
+          "read_gb_per_s": read / 1e9,
+          "data_sheet_gb_per_s": PEAK_BYTES_S / 1e9,
+          "stream_rw_of_data_sheet": mix / PEAK_BYTES_S,
+          "read_of_data_sheet": read / PEAK_BYTES_S})
+
+
+# overlap_chip._time_sweep's chain lengths and reps: each w launches K20
+# (iters + small) * (1 + reps) times (one warm chain of each length)
+SWEEP_CHAINS = (96 + 12) * (1 + 4)
+
+
+def overlap_phase(dev, kernel_times, launches) -> None:
+    """K20's sweep over every w of WS at the reference's 512 MB, through
+    overlap_chip.run (the path: counter zeroed before, read after); raises
+    if t(64) <= t(0), which would mean the chain was eliminated; then K20
+    against its plain version on 512 MB of seeded uniform values at w = 0
+    and w = 64, with times."""
+    import torch
+
+    from libhpc_tpu_torch.bench import overlap_chip as oc
+
+    torch.cuda.synchronize()
+    oc.SWEEP_LAUNCHES = 0
+    rec = oc.run(512, device=dev)
+    torch.cuda.synchronize()
+    launches["overlap"] = {"sweep": oc.SWEEP_LAUNCHES,
+                           "need": {"sweep": len(oc.WS) * SWEEP_CHAINS}}
+    us = rec["us_per_step"]
+    if us["64"] <= us["0"]:
+        raise AssertionError(f"overlap: t(64) {us['64']} us <= t(0) "
+                             f"{us['0']} us: the chain was eliminated")
+    steps = 512 * 1024 * 1024 // (oc.ROWS * oc.LANE * 4)
+    x = rand_on((steps * oc.ROWS, oc.LANE), dev, DENSE_SEED + 6)
+    t = {}
+    for w in (0, 64):
+        case = f"512MB/w{w}"
+        t[w] = kernel_case("overlap_sweep", case,
+                           lambda w=w: oc._sweep_step(x, w),
+                           lambda w=w: oc._sweep_step_torch(x, w),
+                           close_plain, kernel_times, reps=10)
+        WORK[("overlap_sweep", case)] = (nbytes(x) + steps * 8 * oc.LANE * 4,
+                                         2 * w * x.numel())
+    del x
+    torch.cuda.synchronize()
+    emit({"phase": "overlap", **launches["overlap"], "block_mb":
+          rec["block_mb"], "steps": steps, "us_per_step": us,
+          "stream_gb_per_s": rec["stream_gb_per_s"],
+          "compute_unit_us": rec["compute_unit_us"], "w_star": rec["w_star"],
+          "overlap_efficiency": rec["overlap_efficiency"],
+          **{f"w{w}_ms": r[0] for w, r in t.items()},
+          **{f"w{w}_plain_ms": r[1] for w, r in t.items()},
+          **{f"w{w}_max_abs_err_vs_plain": r[2] for w, r in t.items()},
+          **{f"w{w}_bound_ms": max(
+              WORK[("overlap_sweep", f"512MB/w{w}")][0] / PEAK_BYTES_S,
+              WORK[("overlap_sweep", f"512MB/w{w}")][1] / PEAK_F32_OPS_S)
+             * 1e3 for w in t}})
+
+
+# launches of each microarch kernel when its bench runs at its defaults:
+# (iters + iters_small) * (1 + reps) of the bench's time_iterated call
+MICROARCH_NEED = {"lane_shuffle": 9 * 4, "dma_gather": 9 * 4,
+                  "cmpex_roll": 18 * 4, "cmpex_reshape": 18 * 4}
+
+
+def microarch_phase(dev, kernel_times, launches) -> None:
+    """Every bench of microarch.ALL at its defaults (the path: counters
+    zeroed before, read after; each record has the reference's keys and
+    no error), then each K21 kernel past the 50 MB L2, exactly against its
+    plain version: K21a at S = 1024 with 1024 tiles (512 MB of indices),
+    K21b gathering 2^17 rows of 4 KB from a 256 MB table (G = 256), K21c
+    and K21d on 2^20 rows (512 MB); times beside torch.take_along_dim and
+    index_select."""
+    import contextlib
+    import io
+
+    import torch
+
+    from libhpc_tpu_torch.bench import microarch as ma
+
+    torch.cuda.synchronize()
+    ma.LANE_SHUFFLE_LAUNCHES = ma.DMA_GATHER_LAUNCHES = 0
+    ma.CMPEX_ROLL_LAUNCHES = ma.CMPEX_RESHAPE_LAUNCHES = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        for fn in ma.ALL.values():
+            fn(device=dev)
+    torch.cuda.synchronize()
+    launches["microarch"] = {
+        "lane_shuffle": ma.LANE_SHUFFLE_LAUNCHES,
+        "dma_gather": ma.DMA_GATHER_LAUNCHES,
+        "cmpex_roll": ma.CMPEX_ROLL_LAUNCHES,
+        "cmpex_reshape": ma.CMPEX_RESHAPE_LAUNCHES,
+        "need": MICROARCH_NEED}
+    records = [json.loads(line) for line in buf.getvalue().splitlines()]
+    if ({r.get("bench") for r in records} != set(ma.ALL)
+            or any("error" in r for r in records)):
+        raise AssertionError(f"microarch: bench records {records}")
+    for r in records:
+        emit(r)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(DENSE_SEED + 7)
+    s, n_tiles = 1024, 1024
+    tab = rand_on((s, 128), dev, DENSE_SEED + 8)
+    idx = torch.randint(0, 128, (n_tiles * s, 128), device=dev, generator=g,
+                        dtype=torch.int32)
+    rec = {"lane_shuffle": kernel_case(
+        "lane_shuffle", "S1024/tiles1024", lambda: ma.lane_shuffle(tab, idx),
+        lambda: ma.lane_shuffle_torch(tab, idx), exact_plain, kernel_times,
+        reps=10)}
+    WORK[("lane_shuffle", "S1024/tiles1024")] = (
+        nbytes(tab, idx) + n_tiles * s * 128 * 4, 0)
+    idx64 = idx.view(n_tiles, s, 128).long()
+    tab3 = tab.expand(n_tiles, s, 128)
+    if not torch.equal(torch.take_along_dim(tab3, idx64, dim=2).view(-1, 128),
+                       ma.lane_shuffle(tab, idx)):
+        raise AssertionError("lane_shuffle: differs from take_along_dim")
+    LIBRARY_MS["lane_shuffle"] = time_ms(
+        lambda: torch.take_along_dim(tab3, idx64, dim=2), reps=10)
+    del tab, idx, idx64, tab3
+
+    n_table, n_gather, R, G = 1 << 16, 1 << 17, 8, 256
+    table = rand_on((n_table * R, 128), dev, DENSE_SEED + 9)
+    rows = torch.randint(0, n_table, (n_gather,), device=dev, generator=g,
+                         dtype=torch.int32)
+    rec["dma_gather"] = kernel_case(
+        "dma_gather", "2^17x4KB", lambda: ma.dma_gather(rows, table, R, G),
+        lambda: ma.dma_gather_torch(rows, table, R), exact_plain,
+        kernel_times, reps=10)
+    # the table rows this run's indices need, each read once
+    distinct = int(torch.unique(rows).numel())
+    WORK[("dma_gather", "2^17x4KB")] = (
+        nbytes(rows) + (distinct + n_gather) * R * 128 * 4, 0)
+    table2 = table.view(n_table, R * 128)
+    LIBRARY_MS["dma_gather"] = time_ms(
+        lambda: table2.index_select(0, rows), reps=10)
+    del table, rows, table2
+
+    x = rand_on((1 << 20, 128), dev, DENSE_SEED + 10)
+    for kind in ("cmpex_roll", "cmpex_reshape"):
+        rec[kind] = kernel_case(
+            kind, "2^20", lambda k=kind: getattr(ma, k)(x),
+            lambda k=kind: getattr(ma, f"{k}_torch")(x), exact_plain,
+            kernel_times, reps=10)
+        WORK[(kind, "2^20")] = (2 * nbytes(x), x.numel())
+    del x
+    torch.cuda.synchronize()
+    emit({"phase": "microarch", **launches["microarch"],
+          "dma_gather_distinct_rows": distinct,
+          **{f"{k}_ms": r[0] for k, r in rec.items()},
+          **{f"{k}_plain_ms": r[1] for k, r in rec.items()},
+          **{f"{k}_library_ms": LIBRARY_MS.get(k) for k in rec},
+          **{f"{k}_gb_per_s": WORK[(k, c)][0] / (rec[k][0] * 1e-3) / 1e9
+             for k, c in (("lane_shuffle", "S1024/tiles1024"),
+                          ("dma_gather", "2^17x4KB"),
+                          ("cmpex_roll", "2^20"),
+                          ("cmpex_reshape", "2^20"))}})
+
+
 def sort_split_phase(dev) -> None:
     """Where the 500M sort's device time goes: one call profiled (CUPTI),
     kernels summed by name. Last of all the profiles, because one of this
@@ -1944,7 +2128,7 @@ def check_family_launches(launches: dict) -> None:
 
 
 def run(dev):
-    """Phases 1-27 on `dev`; returns the {"kernels": [...]} record."""
+    """Phases 1-30 on `dev`; returns the {"kernels": [...]} record."""
     import torch
 
     from libhpc_tpu_torch.bench import matrices
@@ -1957,7 +2141,8 @@ def run(dev):
         "histogram", "sort_chunk_kv", "sort_chunk_kv_staged",
         "sort_merge_kv_level", "sort_merge_kv_pair", "scan_int",
         "scan_f32", "row_sum", "transpose", "matmul", "matmul_bf16",
-        "blur")}
+        "blur", "overlap_sweep", "lane_shuffle", "dma_gather", "cmpex_roll",
+        "cmpex_reshape")}
     sb_cant = A_cant = None
     for name in ("cant", "pwtk"):
         t0 = time.perf_counter()
@@ -2008,6 +2193,9 @@ def run(dev):
     matmul_phase(dev, kernel_times, family)
     stencil_phase(dev, kernel_times, family)
     grid_phase(dev)
+    hbm_phase(dev)
+    overlap_phase(dev, kernel_times, family)
+    microarch_phase(dev, kernel_times, family)
     check_family_launches(family)
     sort_split_phase(dev)
     library_phase(dev)
@@ -2018,16 +2206,23 @@ def run(dev):
     def entry(kind, name, source, replaces, launches, cases):
         ms = sum(kernel_times[kind][c][0] for c in cases)
         plain_ms = sum(kernel_times[kind][c][1] for c in cases)
-        moved = sum(WORK[(kind, c)][0] for c in cases)
-        ops = sum(WORK[(kind, c)][1] for c in cases)
-        t_bytes = moved / PEAK_BYTES_S * 1e3
-        t_ops = ops / OPS_PEAK.get(kind, PEAK_F32_OPS_S) * 1e3
+        # each case's bound is the larger of its two times; the cases' sum
+        # is split by the kind that bounds each (K20's w = 0 and w = 64
+        # fall on both sides of the ridge)
+        t_bytes = t_ops = 0.0
+        for c in cases:
+            tb = WORK[(kind, c)][0] / PEAK_BYTES_S * 1e3
+            to = WORK[(kind, c)][1] / OPS_PEAK.get(kind, PEAK_F32_OPS_S) * 1e3
+            if tb >= to:
+                t_bytes += tb
+            else:
+                t_ops += to
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(e for _, _, e in
                                    kernel_times[kind].values()),
                 "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
+                "bound_ms": t_bytes + t_ops,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": LIBRARY_MS.get(kind)}
 
@@ -2041,6 +2236,7 @@ def run(dev):
     scan_src = "libhpc_tpu_torch/csrc/scan.cu"
     dia_src = "libhpc_tpu_torch/csrc/dia.cu"
     mm_src = "libhpc_tpu_torch/csrc/matmul.cu"
+    ma_src = "libhpc_tpu_torch/csrc/microarch.cu"
     cant = ["cant/float32"]
     return {"kernels": [
         entry("near", "sbell_near", near_src,
@@ -2103,6 +2299,22 @@ def run(dev):
         entry("blur", "blur2d", "libhpc_tpu_torch/csrc/blur2d.cu",
               "libhpc_tpu/ops/stencil.py:118", family["stencil"]["blur"],
               ["8192^2/r8"]),
+        entry("overlap_sweep", "overlap_sweep",
+              "libhpc_tpu_torch/csrc/overlap_chip.cu",
+              "libhpc_tpu/bench/overlap_chip.py:37",
+              family["overlap"]["sweep"], ["512MB/w0", "512MB/w64"]),
+        entry("lane_shuffle", "lane_shuffle", ma_src,
+              "libhpc_tpu/bench/microarch.py:93",
+              family["microarch"]["lane_shuffle"], ["S1024/tiles1024"]),
+        entry("dma_gather", "dma_gather", ma_src,
+              "libhpc_tpu/bench/microarch.py:132",
+              family["microarch"]["dma_gather"], ["2^17x4KB"]),
+        entry("cmpex_roll", "cmpex_roll", ma_src,
+              "libhpc_tpu/bench/microarch.py:189",
+              family["microarch"]["cmpex_roll"], ["2^20"]),
+        entry("cmpex_reshape", "cmpex_reshape", ma_src,
+              "libhpc_tpu/bench/microarch.py:206",
+              family["microarch"]["cmpex_reshape"], ["2^20"]),
     ]}
 
 

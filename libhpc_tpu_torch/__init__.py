@@ -13,9 +13,10 @@ CSR half (``csr_spmv`` + the Krylov solvers), and the rest of the SpMV
 family behind ``sparse.auto_format``: DIA (plain and the streaming DIA
 kernel), SELL and SELL-P; the sort family: the merge-path u32 sort and
 its key-value form (argsort), the radix module, the histogram and the
-exclusive scans; and the dense-array, stencil and sparse-grid layer: row
+exclusive scans; the dense-array, stencil and sparse-grid layer: row
 sums, the tiled transpose, the tiled matmul, the ghost-cell stencils with
-the halo box blur, Morton codes and the hierarchical sparse grids.
+the halo box blur, Morton codes and the hierarchical sparse grids; and the
+micro-architecture suites with the timing harness.
 
 Entry points run on the card: builders build on the host and move their
 containers to ``device`` (default ``"cuda"``), and a numpy input to an op
@@ -41,7 +42,10 @@ tensor or ``device="cpu"`` asks for the CPU.
   ``poisson5_apply``, ``poisson7_apply`` and the ``*_halo`` stencils).
 - ``libhpc_tpu_torch.containers`` — ``HaloArray``, the ghost-cell array.
 - ``libhpc_tpu_torch.utils``  — Morton codes (``utils.morton``).
-- ``libhpc_tpu_torch.bench``  — the deterministic matrix generators.
+- ``libhpc_tpu_torch.bench``  — the deterministic matrix generators, the
+  timing harness (``bench.harness``: ``time_iterated`` and the
+  device-memory probes), the overlap sweep (``bench.overlap_chip``) and
+  the micro-architecture probes (``bench.microarch``).
 """
 
 __version__ = "0.1.0"

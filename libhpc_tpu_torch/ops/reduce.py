@@ -11,7 +11,8 @@ hierarchical 1024-fan-in multi-pass reduce
                        (0, the dtype's lowest or highest value), as
                        ``jax.ops.segment_*`` do
   tree_reduce_sum(x)   plain torch: the explicit multi-pass 1024-fan-in sum,
-                       in x's dtype (integer sums wrap)
+                       in the dtype jnp.sum gives (narrow integers widen to
+                       32 bits; integer sums wrap)
   row_sum_pallas(x2d)  row sums of a 2-D array through the hand-written CUDA
                        kernel ``csrc/reduce.cu`` (K16, the port of
                        ``reduce.py:_row_sum_kernel``); ``row_sum_pallas_torch``
@@ -40,6 +41,12 @@ ROW_SUM_LAUNCHES = 0
 
 _ROW_SUM_FN = {torch.float32: "row_sum_f32", torch.bfloat16: "row_sum_bf16",
                torch.int32: "row_sum_i32"}
+
+# dtypes that jnp.sum sums in 32-bit words, and the dtype of the sum
+_SUM32 = {torch.bool: torch.int32, torch.int8: torch.int32,
+          torch.int16: torch.int32, torch.int32: torch.int32,
+          torch.uint8: torch.uint32, torch.uint16: torch.uint32,
+          torch.uint32: torch.uint32}
 
 
 def _segment_ids(segment_ids, num_segments: int, device):
@@ -79,16 +86,37 @@ def segment_min(data, segment_ids, num_segments: int, *, device="cuda"):
     return _segment_reduce(data, segment_ids, num_segments, device, "amin")
 
 
+def _u32_words(x: torch.Tensor) -> torch.Tensor:
+    """Integers as int64 values of their 32-bit sum words in [0, 2^32):
+    torch's CPU sum takes neither uint16 nor uint32, so those are read
+    through their bit patterns."""
+    if x.dtype == torch.uint16:
+        return x.view(torch.int16).to(torch.int64) & 0xFFFF
+    if x.dtype == torch.uint32:
+        return x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
 def tree_reduce_sum(x, *, device="cuda") -> torch.Tensor:
     """Multi-pass 1024-fan-in sum (the reference's reduce-until-one loop):
-    each pass pads to a multiple of FAN_IN and sums FAN_IN-wide groups in
-    x's dtype. Returns a 0-d tensor."""
+    each pass pads to a multiple of FAN_IN and sums FAN_IN-wide groups.
+    Returns a 0-d tensor in the dtype ``jnp.sum`` gives: bool, int8, int16
+    and int32 sum to int32, uint8, uint16 and uint32 to uint32, wrapping
+    at 32 bits; other dtypes sum in their own."""
     x = as_tensor(x, device).reshape(-1)
+    out = _SUM32.get(x.dtype)
+    if out is not None:
+        x = _u32_words(x)
     while x.shape[0] > 1:
         n = x.shape[0]
         xp = torch.nn.functional.pad(x, (0, cdiv(n, FAN_IN) * FAN_IN - n))
         x = xp.view(-1, FAN_IN).sum(dim=1, dtype=x.dtype)
-    return x[0]
+        if out is not None:
+            x &= 0xFFFFFFFF
+    if out is None:
+        return x[0]
+    w = x[0]
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32).view(out)
 
 
 def row_sum_pallas_torch(x: torch.Tensor) -> torch.Tensor:

@@ -62,7 +62,11 @@ def box_sum_halo(h: HaloArray, radius: int, axis: int) -> torch.Tensor:
     a0 = h.lo[axis] - r - 1   # padded-coord start of the window we use
     sl = [slice(l, l + s) for l, s in zip(h.lo, h.interior_shape)]
     sl[axis] = slice(a0, a0 + n + 2 * r + 1)
-    c = torch.cumsum(h.data[tuple(sl)], dim=axis)
+    w = h.data[tuple(sl)]
+    # jnp.cumsum keeps the input's dtype (bool counts in int32); integer
+    # sums wrap as the reference's do
+    c = torch.cumsum(w, dim=axis,
+                     dtype=torch.int32 if w.dtype == torch.bool else w.dtype)
     return (c.narrow(axis, 2 * r + 1, n) - c.narrow(axis, 0, n))
 
 

@@ -24,7 +24,9 @@ into a buffer with one spare element that takes the dropped writes;
 ``lax.sort`` and ``argsort(stable=True)`` are ``torch.sort(stable=True)``.
 Tile ids are sorted as int64 values of their u32 codes. Coordinates index
 the grid as in the reference, where a gather clamps indices past the last
-row or column; negative coordinates are outside both APIs.
+row or column and a scatter drops them (a tile past the map takes a pool
+slot that no map entry points to); negative coordinates are outside both
+APIs.
 
 Under ``write_batch(mode="set")`` the value that lands in a position
 written twice is not defined, in the reference as here. ``create`` takes a
@@ -161,9 +163,12 @@ class BlockGrid(TensorLeaves):
         slot = torch.where(is_new, self.n_active + new_rank, existing)
         slot = torch.where(slot < self.capacity, slot, existing)
         do_write = is_new & (slot >= 0)
-        flat_t = torch.where(do_write, uy * gx + ux, 0).to(torch.int64)
+        # the reference's 2-D scatter drops a tile outside the map; the
+        # tile still takes its slot, and tile_pos records its raster id
+        in_map = do_write & (uy < gy) & (ux < gx)
+        flat_t = torch.where(in_map, uy * gx + ux, 0).to(torch.int64)
         tm = self.tile_map.reshape(-1).scatter_reduce(
-            0, flat_t, torch.where(do_write, slot, -1), "amax")
+            0, flat_t, torch.where(in_map, slot, -1), "amax")
         # inverse map slot -> tile raster id; writes for non-allocations drop
         pos = torch.where(do_write, slot, self.capacity).to(torch.int64)
         tp = _scatter_drop(self.tile_pos, pos, uy * gx + ux, "set")
@@ -280,9 +285,12 @@ def _alloc_slots(flat_map, keys, n_active, capacity: int):
     slot = torch.where(is_new, n_active + new_rank, existing)
     slot = torch.where(slot < capacity, slot, existing)  # fail-soft
     do_write = is_new & (slot >= 0)
+    # a key past the map is dropped by the reference's scatter (it still
+    # takes its slot)
+    in_map = do_write & (uniq_i >= 0) & (uniq_i < flat_map.shape[0])
     fm = flat_map.scatter_reduce(
-        0, torch.where(do_write, uniq_i, 0).to(torch.int64),
-        torch.where(do_write, slot, -1), "amax")
+        0, torch.where(in_map, uniq_i, 0).to(torch.int64),
+        torch.where(in_map, slot, -1), "amax")
     n_new = torch.clamp(n_active + new_i.sum(dtype=torch.int32),
                         max=capacity)
     return fm, n_new

@@ -990,3 +990,113 @@ def test_dense_layer_entry_points_default_to_the_card(cuda_device):
                 morton2d_encode(np.arange(4), np.arange(4)),
                 HaloArray.wrap(a, 1).data):
         assert out.device.type == "cuda"
+
+
+# ---- the micro-architecture probes (K20, K21a-d) ---------------------------
+
+
+@pytest.mark.parametrize("w", [0, 1, 2, 13, 64])
+@pytest.mark.parametrize("rows", [2048, 3 * 2048 + 5, 512 * 2048])
+def test_overlap_sweep_kernel_matches_plain(cuda_device, rows, w):
+    """K20 folds every row: equal to its plain version to 1e-5 (both sum
+    256 rows a block, in other orders; the kernel contracts to FMAs).
+    512 blocks is the bench's 512 MB; trailing rows are ignored."""
+    from libhpc_tpu_torch.bench import overlap_chip as oc
+
+    g = torch.Generator(device=cuda_device).manual_seed(rows + w)
+    x = torch.rand((rows, 128), device=cuda_device, generator=g)
+    n0 = oc.SWEEP_LAUNCHES
+    got = oc._sweep_step(x, w)
+    assert oc.SWEEP_LAUNCHES == n0 + 1
+    assert got.shape == (rows // 2048 * 8, 128)
+    _close(got, oc._sweep_step_torch(x, w))
+
+
+@pytest.mark.parametrize("S,n_tiles", [(1, 1), (8, 2), (37, 3), (1024, 16),
+                                       (1000, 33)])
+def test_lane_shuffle_kernel_matches_plain(cuda_device, S, n_tiles):
+    from libhpc_tpu_torch.bench import microarch as ma
+
+    g = torch.Generator(device=cuda_device).manual_seed(S * n_tiles)
+    tab = torch.rand((S, 128), device=cuda_device, generator=g)
+    idx = torch.randint(0, 128, (n_tiles * S, 128), device=cuda_device,
+                        generator=g, dtype=torch.int32)
+    n0 = ma.LANE_SHUFFLE_LAUNCHES
+    got = ma.lane_shuffle(tab, idx)
+    assert ma.LANE_SHUFFLE_LAUNCHES == n0 + 1
+    assert torch.equal(got, ma.lane_shuffle_torch(tab, idx))
+
+
+@pytest.mark.parametrize("n_table,n_gather,R,G", [
+    (1, 1, 1, 1), (16, 32, 8, 8), (5, 17, 3, 5), (1 << 12, 1 << 14, 8, 256),
+    (300, 1001, 8, 2), (64, 100, 65, 1)])
+def test_dma_gather_kernel_matches_plain(cuda_device, n_table, n_gather, R,
+                                         G):
+    from libhpc_tpu_torch.bench import microarch as ma
+
+    g = torch.Generator(device=cuda_device).manual_seed(n_gather + R)
+    table = torch.rand((n_table * R, 128), device=cuda_device, generator=g)
+    idx = torch.randint(0, n_table, (n_gather,), device=cuda_device,
+                        generator=g, dtype=torch.int32)
+    n0 = ma.DMA_GATHER_LAUNCHES
+    got = ma.dma_gather(idx, table, R, G)
+    assert ma.DMA_GATHER_LAUNCHES == n0 + 1
+    assert torch.equal(got, ma.dma_gather_torch(idx, table, R))
+
+
+@pytest.mark.parametrize("rows", [1, 8, 37, 2048, 100_003])
+def test_cmpex_kernels_match_plain(cuda_device, rows):
+    """K21c and K21d each equal their own plain version exactly; they agree
+    on the odd lanes only."""
+    from libhpc_tpu_torch.bench import microarch as ma
+
+    g = torch.Generator(device=cuda_device).manual_seed(rows)
+    x = torch.rand((rows, 128), device=cuda_device, generator=g)
+    n0 = (ma.CMPEX_ROLL_LAUNCHES, ma.CMPEX_RESHAPE_LAUNCHES)
+    roll, reshape = ma.cmpex_roll(x), ma.cmpex_reshape(x)
+    assert (ma.CMPEX_ROLL_LAUNCHES, ma.CMPEX_RESHAPE_LAUNCHES) == (
+        n0[0] + 1, n0[1] + 1)
+    assert torch.equal(roll, ma.cmpex_roll_torch(x))
+    assert torch.equal(reshape, ma.cmpex_reshape_torch(x))
+    assert torch.equal(roll[:, 1::2], reshape[:, 1::2])
+    assert torch.equal(roll[:, 0], torch.minimum(x[:, 0], x[:, 127]))
+
+
+def test_microarch_wrappers_raise_on_bad_input(cuda_device):
+    from libhpc_tpu_torch.bench import microarch as ma
+    from libhpc_tpu_torch.bench import overlap_chip as oc
+
+    x = torch.rand((2048, 128), device=cuda_device)
+    idx = torch.zeros((2048, 128), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        oc._sweep_step(x.double(), 1)
+    with pytest.raises(ValueError):
+        oc._sweep_step(x[:, :64], 1)
+    with pytest.raises(TypeError):
+        ma.lane_shuffle(x[:8], idx.long())
+    with pytest.raises(ValueError):
+        ma.lane_shuffle(x[:8], idx.cpu())
+    with pytest.raises(TypeError):
+        ma.dma_gather(idx[:, 0].contiguous().long(), x, 8, 8)
+    with pytest.raises(ValueError):
+        ma.dma_gather(idx[:4, 0].contiguous(), x[:, :64], 8, 8)
+    with pytest.raises(TypeError):
+        ma.cmpex_roll(x.half())
+    with pytest.raises(ValueError):
+        ma.cmpex_reshape(x.t())
+
+
+def test_benches_run_on_the_card(cuda_device, capsys):
+    """Every microarch bench and the overlap sweep, given no device, run on
+    the card through their kernels and emit JSON without an error."""
+    import json
+
+    from libhpc_tpu_torch.bench import microarch as ma
+    from libhpc_tpu_torch.bench import overlap_chip as oc
+
+    ma.main([])
+    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
+    assert {d["bench"] for d in lines} == set(ma.ALL)
+    assert all("error" not in d for d in lines), lines
+    out = oc.run(mb=64)
+    assert out["platform"] == "gpu" and out["stream_gb_per_s"] > 0

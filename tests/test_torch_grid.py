@@ -376,3 +376,35 @@ def test_locality():
     codes = [int(morton2d_encode(x, y, device="cpu"))
              for x, y in ((0, 0), (1, 0), (0, 1), (1, 1))]
     assert codes == [0, 1, 2, 3]
+
+
+# ---- tiles past the map: the reference's scatters drop them ----------------
+
+
+@pytest.mark.parametrize("shape,bs,cap,xs,ys,order", [
+    ((2, 2), 16, 8, [5, 5], [3, 40], "raster"),   # a tile row past the map
+    ((2, 2), 16, 8, [5, 5], [3, 40], "morton"),
+    ((2, 2), 16, 8, [5, 40], [3, 3], "morton"),   # a tile column past it
+    ((2, 2), 4, 8, [0, 5, 9], [0, 0, 7], "raster"),
+])
+def test_touch_past_the_map_matches_the_reference(shape, bs, cap, xs, ys,
+                                                   order):
+    """A touched tile outside tile_map takes a pool slot (n_active counts
+    it, tile_pos records its raster id) but no map entry points to it; no
+    other tile is allocated in its place."""
+    g, r = _pair(shape, block_size=bs, capacity=cap)
+    tx, ty, jx, jy = _xy(xs, ys)
+    g = g.touch_batch(tx, ty, order=order)
+    r = r.touch_batch(jx, jy, order=order)
+    _same_grid(g, r, exact=True)
+    assert int(g.n_active) == int(r.n_active)
+
+
+def test_nested_touch_past_the_map_matches_the_reference():
+    g, r = _npair((2, 2), mid_grid=(2, 2), block_size=4, cap_mid=8,
+                  cap_leaf=16)
+    tx, ty, jx, jy = _xy([1, 1], [1, 20])
+    g, r = g.touch_batch(tx, ty), r.touch_batch(jx, jy)
+    _same_grid(g, r, exact=True)
+    assert g.map0.tolist() == [[0, -1], [-1, -1]]
+    assert (int(g.n_mid), int(g.n_leaf)) == (2, 1)

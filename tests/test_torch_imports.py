@@ -58,6 +58,9 @@ MODULES = [
     "libhpc_tpu_torch.utils.morton",
     "libhpc_tpu_torch.bench",
     "libhpc_tpu_torch.bench.matrices",
+    "libhpc_tpu_torch.bench.harness",
+    "libhpc_tpu_torch.bench.overlap_chip",
+    "libhpc_tpu_torch.bench.microarch",
 ]
 
 
@@ -229,6 +232,39 @@ def test_cpu_tensors_take_the_plain_path_dense_layer(monkeypatch):
             stencil.BLUR_LAUNCHES) == (0, 0, 0, 0)
 
 
+def test_cpu_tensors_take_the_plain_path_microarch(monkeypatch):
+    """K20's and K21a-d's wrappers on CPU tensors equal their plain
+    versions, never reach a kernel entry point, and leave their launch
+    counters at 0."""
+    from libhpc_tpu_torch.bench import microarch as ma
+    from libhpc_tpu_torch.bench import overlap_chip as oc
+
+    def no_kernel(*_):
+        raise AssertionError("a CPU tensor reached a kernel entry point")
+
+    for mod in (ma, oc):
+        monkeypatch.setattr(mod, "kernel_fn", no_kernel)
+    for mod, name in ((oc, "SWEEP_LAUNCHES"), (ma, "LANE_SHUFFLE_LAUNCHES"),
+                      (ma, "DMA_GATHER_LAUNCHES"),
+                      (ma, "CMPEX_ROLL_LAUNCHES"),
+                      (ma, "CMPEX_RESHAPE_LAUNCHES")):
+        monkeypatch.setattr(mod, name, 0)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.random((2 * 2048, 128), dtype=np.float32))
+    idx = torch.from_numpy(rng.integers(0, 128, (96, 128), dtype=np.int32))
+    rows = torch.from_numpy(rng.integers(0, 24, 40, dtype=np.int32))
+    assert torch.equal(oc._sweep_step(x, 3), oc._sweep_step_torch(x, 3))
+    assert torch.equal(ma.lane_shuffle(x[:32], idx),
+                       ma.lane_shuffle_torch(x[:32], idx))
+    assert torch.equal(ma.dma_gather(rows, x[:72], 3, 5),
+                       ma.dma_gather_torch(rows, x[:72], 3))
+    assert torch.equal(ma.cmpex_roll(x), ma.cmpex_roll_torch(x))
+    assert torch.equal(ma.cmpex_reshape(x), ma.cmpex_reshape_torch(x))
+    assert (oc.SWEEP_LAUNCHES, ma.LANE_SHUFFLE_LAUNCHES,
+            ma.DMA_GATHER_LAUNCHES, ma.CMPEX_ROLL_LAUNCHES,
+            ma.CMPEX_RESHAPE_LAUNCHES) == (0,) * 5
+
+
 def _aims_at_the_card(fn):
     """fn() with no device given must aim at "cuda": on a machine without
     a card it raises (torch's "not compiled with CUDA" or "no CUDA GPUs"),
@@ -356,3 +392,28 @@ def test_torch_tensors_stay_on_their_device():
     assert s.device.type == order.device.type == "cpu"
     assert scan.exclusive_scan_pallas(x).device.type == "cpu"
     assert torch.equal(order, torch.arange(3000, dtype=torch.int32).flip(0))
+
+
+BENCHES = ["gather_row_width", "scatter_modes", "lane_shuffle", "dma_gather",
+           "roll_vs_reshape", "overlap_chip.run"]
+
+
+@pytest.mark.parametrize("name", BENCHES)
+def test_benches_default_to_the_card(name):
+    """Every bench given no device runs on the card: without one it raises
+    before it measures anything."""
+    from libhpc_tpu_torch.bench import microarch as ma
+    from libhpc_tpu_torch.bench import overlap_chip as oc
+
+    small = {"gather_row_width": dict(n_rows=256, m=256),
+             "scatter_modes": dict(n=4096),
+             "lane_shuffle": dict(S=8, n_tiles=2),
+             "dma_gather": dict(n_table=16, n_gather=32, R=8, G=8),
+             "roll_vs_reshape": dict(rows=8)}
+    fn = (lambda: oc.run(mb=2)) if name == "overlap_chip.run" else (
+        lambda: ma.ALL[name](**small[name]))
+    if torch.cuda.is_available():
+        fn()
+        return
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA|NVIDIA"):
+        fn()

@@ -114,3 +114,18 @@ def test_kernel_wrapper_on_cpu_is_the_plain_version(rng, monkeypatch):
         red.row_sum_pallas(x[0])
     assert red.ROW_SUM_LAUNCHES == 0
     assert red.FAN_IN == ref.FAN_IN
+
+
+@pytest.mark.parametrize("dtype,value", [
+    (np.int8, 100), (np.uint8, 200), (np.int16, 200), (np.bool_, True),
+    (np.uint16, 60000), (np.uint32, 4_000_000_000), (np.int32, 2**30),
+    (np.float16, 1.0)])
+def test_tree_reduce_dtype_of_jnp_sum(dtype, value):
+    """The sum comes back in jnp.sum's dtype (narrow integers widen to
+    int32 or uint32) and wraps at 32 bits as the reference's does."""
+    x = np.full(3000, value, dtype)
+    got = red.tree_reduce_sum(torch.from_numpy(x))
+    want = np.asarray(ref.tree_reduce_sum(jnp.asarray(x)))
+    assert got.shape == ()
+    assert got.numpy().dtype == want.dtype
+    assert got.numpy() == want

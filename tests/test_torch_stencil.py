@@ -228,3 +228,18 @@ def test_shared_kernel_zero_vs_filled_halo(rng):
     y1 = stencil.poisson5_halo(h1).numpy()
     np.testing.assert_allclose(y1[1:], y0[1:], rtol=1e-6)
     np.testing.assert_allclose(y1[0], y0[0] - 1.0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int8, np.uint8, np.int16])
+def test_cumsum_stencils_keep_integer_dtypes(rng, dtype):
+    """jnp.cumsum keeps an integer dtype (sums wrap), so the cumsum-form
+    blurs return the input's dtype with the reference's values."""
+    a = rng.integers(0, 100, (8, 8)).astype(dtype)
+    got = stencil.blur2d(a, 2, device="cpu").numpy()
+    want = np.asarray(ref.blur2d(jnp.asarray(a), 2))
+    assert got.dtype == want.dtype == dtype
+    np.testing.assert_array_equal(got, want)
+    got_x = stencil.blur_x(torch.from_numpy(a), 2).numpy()
+    want_x = np.asarray(ref.blur_x(jnp.asarray(a), 2))
+    assert got_x.dtype == want_x.dtype
+    np.testing.assert_array_equal(got_x, want_x)
