@@ -26,7 +26,8 @@ bench/microarch.py, each kernel checked again past the 50 MB L2.
     python3 chip_smoke.py        # from the root of a checkout
 
 Phases, one JSON line each:
-  0 device     card, versions, kernel build seconds
+  0 device     card, versions, kernel build seconds, the HGMMA (wgmma)
+               lines in the library's SASS (fails at 0)
   1 spmv       sbell_spmv on cant/pwtk in f32 and bf16: kernels against
                their plain PyTorch versions on the card and against scipy;
                times of the near kernel and of the whole SpMV, each as
@@ -89,11 +90,13 @@ Phases, one JSON line each:
                K17 on a ragged 5000 x 3001 int32 exactly; times beside
                x.t().contiguous()
  22 matmul     K18 at 1024^2 and 8192^2 on mean-zero operands, in f32
-               (against its plain version and a float64 product: at rtol
-               1e-4, atol 1e-3 at 1024^2, and within the float32 rounding
-               bound sqrt(K) 2^-24 |A||B| at both sizes, which torch.matmul
-               with TF32 on must miss) and bf16 (against the f32 product of
-               the bf16 operands, 1e-2); times beside torch.matmul, TF32 off
+               (the FMA kernel, against its plain version and a float64
+               product: at rtol 1e-4, atol 1e-3 at 1024^2, and within the
+               float32 rounding bound sqrt(K) 2^-24 |A||B| at both sizes,
+               which torch.matmul with TF32 on must miss) and in bf16 and
+               f16 (the wgmma kernel after K17 on B, against the f32
+               product of the rounded operands, 1e-2; K17's share, device
+               times); times beside torch.matmul, TF32 off
  23 stencil    K19 blur2d_pallas on 8192^2, r = 8, against its plain
                version and a float64 box sum; the plain blur2d (cumsum
                form), F.avg_pool2d (zero-padded mean times 17^2, the
@@ -134,7 +137,7 @@ Phases, one JSON line each:
 Then a {"kernels": [...]} line (every kernel with its time, its plain
 version's, its bound -- the larger of its bytes over 3.35 TB/s and its
 operations over the card's peak for their type: 67 TFLOP/s in float32, 989
-TFLOP/s for bfloat16 on the tensor cores -- and the time of one PyTorch
+TFLOP/s for bfloat16 and float16 on the tensor cores -- and the time of one PyTorch
 call computing the same function: a torch.sparse CSR matvec for the SpMV
 kernels, torch.sort for the sorts, torch.bincount, torch.cumsum, torch.sum,
 x.t().contiguous(), torch.matmul, F.avg_pool2d, torch.take_along_dim,
@@ -161,13 +164,14 @@ TOL_ROW = 1e-4        # K16 vs float64: rtol (test_scan_reduce.py)
 # sum of mean-zero terms nears that atol, so both sizes are held to the
 # float32 rounding bound instead (fp32_bound_ratio)
 TOL_MM = (1e-4, 1e-3)
-# K18 in bfloat16 vs the float32 product of the bf16-rounded operands: its
-# output is rounded once to bf16 (relative 2^-9), plus float32 order
-TOL_MM_BF16 = 1e-2
+# K18 in bfloat16 / float16 vs the float32 product of the rounded
+# operands: its output is rounded once (relative 2^-9 / 2^-11), plus
+# float32 order
+TOL_MM_HALF = 1e-2
 
 # the card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): device memory
 # bytes a second, float32 operations a second outside the tensor cores, and
-# dense bfloat16 operations a second on the tensor cores
+# dense bfloat16 (and float16) operations a second on the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
 PEAK_BF16_OPS_S = 989e12
@@ -176,7 +180,7 @@ PEAK_BF16_OPS_S = 989e12
 # peak rate of those operations by kind (float32 unless listed), and
 # kind -> ms of one PyTorch call computing the same function
 WORK: dict = {}
-OPS_PEAK = {"matmul_bf16": PEAK_BF16_OPS_S}
+OPS_PEAK = {"matmul_bf16": PEAK_BF16_OPS_S, "matmul_f16": PEAK_BF16_OPS_S}
 LIBRARY_MS: dict = {}
 
 
@@ -1624,30 +1628,37 @@ def fp32_bound_ratio(c, oracle, abs_prod, k: int) -> float:
 
 
 def matmul_phase(dev, kernel_times, launches):
-    """K18 at 1024^2 and 8192^2 in float32 and bfloat16 (the path: one
-    launch each) on mean-zero operands, so that rounding errors do not
-    average out. float32 against its plain version and a float64 product:
-    TOL_MM (the reference test's) at 1024^2, and at both sizes within the
-    float32 rounding bound (fp32_bound_ratio < 1), which torch.matmul with
-    TF32 on must miss (the control, run once a size). bfloat16 against the
-    float32 product of its rounded operands (TOL_MM_BF16). Times beside
-    torch.matmul (TF32 off)."""
+    """K18 at 1024^2 and 8192^2 in float32, bfloat16 and float16 (the path:
+    one K18 launch each, and one K17 launch on B for the half widths) on
+    mean-zero operands, so that rounding errors do not average out.
+    float32 against its plain version and a float64 product: TOL_MM (the
+    reference test's) at 1024^2, and at both sizes within the float32
+    rounding bound (fp32_bound_ratio < 1), which torch.matmul with TF32 on
+    must miss (the control, run once a size). bfloat16 and float16 against
+    the float32 product of their rounded operands (TOL_MM_HALF), with
+    K17's time on B, the call's CUDA-graph time and the CUPTI device times
+    of K17 and K18. Times beside torch.matmul (TF32 off)."""
     import torch
 
     from libhpc_tpu_torch.ops import matmul as mm
+    from libhpc_tpu_torch.ops import transpose as tr
 
     rec, counts = {}, {}
     for n in (1024, DENSE_N):
         for dtype, kind in ((torch.float32, "matmul"),
-                            (torch.bfloat16, "matmul_bf16")):
+                            (torch.bfloat16, "matmul_bf16"),
+                            (torch.float16, "matmul_f16")):
             a = randn_on((n, n), dev, DENSE_SEED + 2, dtype)
             b = randn_on((n, n), dev, DENSE_SEED + 3, dtype)
             case, tag = f"{n}^2", f"{kind}_{n}"
             torch.cuda.synchronize()
             mm.MATMUL_LAUNCHES = 0
+            tr.TRANSPOSE_LAUNCHES = 0
             c = mm.matmul_pallas(a, b)
             torch.cuda.synchronize()
             counts[kind] = counts.get(kind, 0) + mm.MATMUL_LAUNCHES
+            counts["transpose"] = (counts.get("transpose", 0)
+                                   + tr.TRANSPOSE_LAUNCHES)
             if c.dtype != dtype or c.shape != (n, n):
                 raise AssertionError(f"matmul {case}: {c.dtype} {c.shape}")
             abs_prod = None
@@ -1680,8 +1691,8 @@ def matmul_phase(dev, kernel_times, launches):
                 del c32
             else:
                 oracle = (a.float() @ b.float()).double()
-                ok = torch.allclose(c.double(), oracle, rtol=TOL_MM_BF16,
-                                    atol=TOL_MM_BF16)
+                ok = torch.allclose(c.double(), oracle, rtol=TOL_MM_HALF,
+                                    atol=TOL_MM_HALF)
             err = max_err(c.double(), oracle)
             if not ok:
                 raise AssertionError(f"matmul {case} {dtype}: off its "
@@ -1698,7 +1709,7 @@ def matmul_phase(dev, kernel_times, launches):
                         raise AssertionError(f"{what}: {r} times the float32 "
                                              f"bound, max |diff| {e}")
                 elif not torch.allclose(got.float(), want.float(),
-                                        rtol=TOL_MM_BF16, atol=TOL_MM_BF16):
+                                        rtol=TOL_MM_HALF, atol=TOL_MM_HALF):
                     raise AssertionError(f"{what}: max |diff| {e}")
                 return e
 
@@ -1715,9 +1726,26 @@ def matmul_phase(dev, kernel_times, launches):
                         f"{tag}_max_abs_err_vs_plain": t[2],
                         f"{tag}_max_abs_err_vs_oracle": err,
                         f"{tag}_tflop_s": 2 * n ** 3 / (t[0] * 1e-3) / 1e12})
+            if dtype != torch.float32:
+                # the call's device time without the host's gaps (graph
+                # replay), and its split by kernel (CUPTI)
+                _, by_name = device_ms(lambda: mm.matmul_pallas(a, b),
+                                       reps=3, want={"wgmma": 1,
+                                                     "transpose": 1})
+                split = {part: (sum(v for name, v in by_name.items()
+                                    if part in name) if by_name else None)
+                         for part in ("wgmma", "transpose")}
+                rec.update({
+                    f"{tag}_k17_ms": time_ms(lambda: tr.transpose_pallas(b),
+                                             reps=reps),
+                    f"{tag}_graph_ms": graph_ms(
+                        lambda: mm.matmul_pallas(a, b), reps=reps),
+                    f"{tag}_device_k18_ms": split["wgmma"],
+                    f"{tag}_device_k17_ms": split["transpose"]})
             del a, b, abs_prod
     launches["matmul"] = {**counts,
-                          "need": {"matmul": 2, "matmul_bf16": 2}}
+                          "need": {"matmul": 2, "matmul_bf16": 2,
+                                   "matmul_f16": 2, "transpose": 4}}
     torch.cuda.synchronize()
     emit({"phase": "matmul", **launches["matmul"],
           "tf32": torch.backends.cuda.matmul.allow_tf32, **rec})
@@ -2141,7 +2169,7 @@ def run(dev):
         "histogram", "sort_chunk_kv", "sort_chunk_kv_staged",
         "sort_merge_kv_level", "sort_merge_kv_pair", "scan_int",
         "scan_f32", "row_sum", "transpose", "matmul", "matmul_bf16",
-        "blur", "overlap_sweep", "lane_shuffle", "dma_gather", "cmpex_roll",
+        "matmul_f16", "blur", "overlap_sweep", "lane_shuffle", "dma_gather", "cmpex_roll",
         "cmpex_reshape")}
     sb_cant = A_cant = None
     for name in ("cant", "pwtk"):
@@ -2290,11 +2318,15 @@ def run(dev):
               ["8192^2"]),
         entry("transpose", "transpose", "libhpc_tpu_torch/csrc/transpose.cu",
               "libhpc_tpu/ops/transpose.py:26",
-              family["transpose"]["transpose"], ["8192^2"]),
+              family["transpose"]["transpose"]
+              + family["matmul"]["transpose"], ["8192^2"]),
         entry("matmul", "matmul", mm_src, "libhpc_tpu/ops/matmul.py:23",
               family["matmul"]["matmul"], ["8192^2"]),
         entry("matmul_bf16", "matmul_bf16", mm_src,
               "libhpc_tpu/ops/matmul.py:23", family["matmul"]["matmul_bf16"],
+              ["8192^2"]),
+        entry("matmul_f16", "matmul_f16", mm_src,
+              "libhpc_tpu/ops/matmul.py:23", family["matmul"]["matmul_f16"],
               ["8192^2"]),
         entry("blur", "blur2d", "libhpc_tpu_torch/csrc/blur2d.cu",
               "libhpc_tpu/ops/stencil.py:118", family["stencil"]["blur"],
@@ -2334,12 +2366,17 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda_utils.kernel_lib()
     build_s = time.perf_counter() - t0
+    hgmma = _cuda_utils.count_sass("HGMMA")
+    if hgmma == 0:
+        raise AssertionError("the kernel library's SASS holds no HGMMA: "
+                             "K18's half-width path runs no wgmma")
     dev = torch.device("cuda")
     warm_up_card()
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build_s,
-          "library": str(_cuda_utils.library_path().name)})
+          "library": str(_cuda_utils.library_path().name),
+          "hgmma_sass_lines": hgmma})
     kernels = run(dev)
     emit(kernels)
     print(smi, flush=True)

@@ -6,34 +6,59 @@
 //   C = A @ B,   A: (M, K), B: (K, N), C: (M, N), all row-major;
 //   sums in float32, C in the operands' dtype
 //
-// Design:
-//   - The TPU kernel walks a (M/TM, N/TN, K/TK) grid whose K axis runs in
-//     order and carries the float32 accumulator in VMEM. On Hopper blocks
-//     run in no order, so a block owns a whole 128 x 128 tile of C and
-//     walks K itself, 8 deep at a time; the accumulator lives in
-//     registers: each of 256 threads holds an 8 x 8 sub-tile (64 floats).
-//   - Per K step a block stages A[128 x 8] (transposed, rows padded by 4
-//     floats so the transposing stores do not collide in one bank) and
-//     B[8 x 128] in shared memory, zero-filling what lies past M, N or K
-//     (so no operand is padded in device memory), then each thread reads
-//     8 values of A and 8 of B as float4s and does 64 FMAs.
-//   - float32 operands use FP32 FMAs on the CUDA cores, not TF32: the
-//     reference's tolerance (rtol 1e-4 at K = 300-512) needs float32's 24
-//     mantissa bits. bfloat16 and float16 operands are widened to float32
-//     as they are staged and take the same FMAs; C is rounded once to the
-//     operands' dtype (round to nearest even).
+// The TPU kernel walks a (M/TM, N/TN, K/TK) grid whose K axis runs in
+// order and carries the float32 accumulator in VMEM. On Hopper blocks run
+// in no order, so a block owns a whole 128 x 128 tile of C, walks K itself
+// and keeps the accumulator in registers. Two kernels:
 //
-// What bounds it: the 2*M*N*K operations on the CUDA cores' FP32 rate
-// (67 TFLOP/s on an H100 SXM). A half-width input gets no tensor cores
-// here, so its bound, at the tensor cores' rate, is far below this time.
+// bfloat16 and float16: wgmma_kernel, on the tensor cores.
+//   - The wrapper hands over B^T (N, K), made by K17, so that A and B^T
+//     are both K-major and share one recipe: a TMA box of 128 rows x 64
+//     values (128 bytes, one 128-byte swizzle row), and one wgmma
+//     shared-memory descriptor (start >> 4, LBO 1 (unread), SBO 1024 >> 4
+//     = 8 rows of 128 B, layout B128, no transpose). K is padded by the
+//     wrapper to a multiple of 8 (16-byte rows for TMA); M and N are not:
+//     TMA zero-fills a box that runs past the tensor, and the epilogue
+//     masks its stores.
+//   - A ring of STAGES stages of (A 16 KB + B^T 16 KB) in dynamic shared
+//     memory, aligned by hand to 1 KB (the swizzle repeats every 1 KB).
+//     Each stage has a full and an empty mbarrier. A producer warpgroup
+//     (one thread of it issues) waits for a stage to be empty, sets the
+//     full barrier to expect the whole boxes' bytes (TMA counts a box in
+//     full where it zero-fills) and issues the two TMA loads. Two consumer
+//     warpgroups each own 64 rows of C: per stage they wait on its full
+//     barrier, issue four wgmma.m64n128k16 (one a k16 slice: the
+//     descriptors advance 32 bytes), keep one group in flight and release
+//     the stage before on its empty barrier (lane 0 of each warp arrives).
+//   - Blocks take tiles in bands of GROUP_M tile rows, column by column,
+//     so that the blocks in flight share their A and B^T tiles in the L2.
+//   - Epilogue: each thread's 64 float32 sums (the m64nNk16 D fragment:
+//     warp w, lane l, d[4j + 2h + e] is row 16w + l/4 + 8h, column
+//     8j + 2(l%4) + e) are rounded once to nearest even and stored two a
+//     word, masked at M and N.
+// float32: mm_kernel, FP32 FMAs on the CUDA cores, never TF32: the
+//   reference's tolerance (rtol 1e-4 at K = 300-512) needs float32's 24
+//   mantissa bits. Per K step a block stages A[128 x 8] (transposed, rows
+//   padded by 4 floats against bank conflicts) and B[8 x 128] in shared
+//   memory, zero-filling past M, N or K; each of 256 threads holds an
+//   8 x 8 sub-tile and does 64 FMAs a step.
+//
+// What bounds it: the 2*M*N*K operations, at the tensor cores' dense
+// rate for bf16/f16 (989 TFLOP/s on an H100 SXM) and at the CUDA cores'
+// FP32 rate for float32 (67 TFLOP/s).
 
+#include <climits>
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
 namespace {
+
+// ---- float32: FP32 FMAs on the CUDA cores ---------------------------------
 
 constexpr int BM = 128;
 constexpr int BN = 128;
@@ -44,18 +69,8 @@ constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
 constexpr int APAD = 4;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 __device__ __forceinline__ void store(float v, float* o) { *o = v; }
-__device__ __forceinline__ void store(float v, __nv_bfloat16* o) {
-  *o = __float2bfloat16(v);
-}
-__device__ __forceinline__ void store(float v, __half* o) {
-  *o = __float2half(v);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -123,8 +138,8 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <typename T>
-int launch(const void* a, const void* b, void* c, int m, int n, int k,
-           void* stream) {
+int launch_fma(const void* a, const void* b, void* c, int m, int n, int k,
+               void* stream) {
   if (m <= 0 || n <= 0) return 0;
   const int gy = (m + BM - 1) / BM;
   if (gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
@@ -135,19 +150,330 @@ int launch(const void* a, const void* b, void* c, int m, int n, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bfloat16 / float16: wgmma fed by a TMA ring ---------------------------
+
+constexpr int WM = 128;                          // rows of C a block
+constexpr int WN = 128;                          // columns of C a block
+constexpr int WK = 64;                           // K a stage: 128 bytes
+constexpr int STAGES = 4;
+constexpr int CONSUMERS = 2;                     // warpgroups of 64 rows
+constexpr int WG_THREADS = 128 * (CONSUMERS + 1);  // + the producer's
+constexpr int TILE_A_BYTES = WM * WK * 2;        // 16 KB
+constexpr int TILE_B_BYTES = WN * WK * 2;        // 16 KB
+constexpr int STAGE_BYTES = TILE_A_BYTES + TILE_B_BYTES;
+constexpr int WG_SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment
+constexpr int GROUP_M = 8;                       // tile rows in a band
+// consumers release a stage only after issuing the next one's wgmma
+static_assert(STAGES >= 2, "a ring of one stage deadlocks");
+// a barrier wait that polls this long (about 10 s at the card's clock)
+// waits for bytes that never come: trap rather than hang the card
+constexpr long long HANG_CYCLES = 20000000000LL;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed (a fresh
+// barrier counts its phase before as complete: parity 1 passes at once).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = -1;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (t0 < 0) {
+      t0 = now;
+    } else if (now - t0 > HANG_CYCLES) {
+      __trap();
+    }
+  }
+}
+
+// 2-D TMA load of the box at (c0 innermost, c1) into shared memory at dst;
+// completion is reported to bar as bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major, 128-byte-swizzled tile whose
+// 8-row atoms (8 x 128 B) lie 1 KB apart.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>(1) << 16)
+         | (static_cast<uint64_t>(1024 >> 4) << 32)
+         | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define K18_ACC_REGS                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+#define K18_ACC_OPERANDS                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),       \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),       \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),       \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),       \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),       \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),       \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// D (64 x 128, f32) += A (64 x 16) B (16 x 128), both from shared memory,
+// K-major (transpose immediates 0), scale-d 1.
+#define K18_WGMMA(TYPE)                                                      \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPE "." TYPE \
+               " " K18_ACC_REGS ", %64, %65, p, 1, 1, 0, 0;\n}\n"            \
+               : K18_ACC_OPERANDS                                            \
+               : "l"(da), "l"(db), "r"(1))
+
+template <typename T>
+__device__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_m64n128k16<__nv_bfloat16>(
+    float (&d)[64], uint64_t da, uint64_t db) {
+  K18_WGMMA("bf16");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64n128k16<__half>(float (&d)[64],
+                                                         uint64_t da,
+                                                         uint64_t db) {
+  K18_WGMMA("f16");
+}
+
+#undef K18_WGMMA
+#undef K18_ACC_OPERANDS
+#undef K18_ACC_REGS
+
+__device__ __forceinline__ void store2(float v0, float v1, __nv_bfloat16* p) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ void store2(float v0, float v1, __half* p) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(v0, v1);
+}
+__device__ __forceinline__ void store1(float v, __nv_bfloat16* p) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store1(float v, __half* p) {
+  *p = __float2half_rn(v);
+}
+
+// C = A @ B from the tensor maps of A (M, K) and B^T (N, K); one 128 x 128
+// tile of C a block; k a multiple of 8.
+template <typename T>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_bt,
+                 T* __restrict__ c, int m, int n, int k) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(8) uint64_t empty[STAGES];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+
+  // this block's tile: bands of GROUP_M tile rows, walked column by column
+  const int tiles_m = (m + WM - 1) / WM;
+  const int tiles_n = (n + WN - 1) / WN;
+  const int band = GROUP_M * tiles_n;
+  const int first = (static_cast<int>(blockIdx.x) / band) * GROUP_M;
+  const int rows = min(tiles_m - first, GROUP_M);
+  const int in_band = static_cast<int>(blockIdx.x) % band;
+  const int tm = first + in_band % rows;
+  const int tn = in_band / rows;
+  const int steps = (k + WK - 1) / WK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {  // the producer warpgroup: one thread issues
+    if (threadIdx.x == CONSUMERS * 128) {
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % STAGES;
+        mbar_wait(smem_u32(&empty[s]), ((i / STAGES) & 1) ^ 1);
+        const uint32_t bar = smem_u32(&full[s]);
+        mbar_expect_tx(bar, STAGE_BYTES);
+        const uint32_t dst = ring + s * STAGE_BYTES;
+        tma_load(dst, &map_a, i * WK, tm * WM, bar);
+        tma_load(dst + TILE_A_BYTES, &map_bt, i * WK, tn * WN, bar);
+      }
+    }
+    return;
+  }
+
+  float d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  const bool arrives = threadIdx.x % 32 == 0;
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(smem_u32(&full[s]), (i / STAGES) & 1);
+    __syncwarp();  // the wgmma instructions below are .aligned
+    const uint32_t a = ring + s * STAGE_BYTES + wg * (TILE_A_BYTES / 2);
+    const uint32_t b = ring + s * STAGE_BYTES + TILE_A_BYTES;
+    fence_acc(d);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < WK / 16; ++kk)
+      wgmma_m64n128k16<T>(d, smem_desc(a + 32 * kk), smem_desc(b + 32 * kk));
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    // the group of step i - 1 is done with its stage: release it
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    fence_acc(d);
+    if (i > 0 && arrives) mbar_arrive(smem_u32(&empty[(i - 1) % STAGES]));
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  fence_acc(d);
+
+  const int t = threadIdx.x % 128;
+  const int row0 = tm * WM + wg * 64 + (t / 32) * 16 + (t % 32) / 4;
+  const int col0 = tn * WN + 2 * (t % 4);
+  const bool pairs = n % 2 == 0;  // two columns a 4-byte word
+#pragma unroll
+  for (int j = 0; j < WN / 8; ++j) {
+    const int col = col0 + 8 * j;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= m || col >= n) continue;
+      T* p = c + static_cast<int64_t>(row) * n + col;
+      const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+      if (pairs) {
+        store2(v0, v1, p);  // n even: col + 1 < n too
+      } else {
+        store1(v0, p);
+        if (col + 1 < n) store1(v1, p + 1);
+      }
+    }
+  }
+}
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled, a libcuda entry point, taken from the
+// libcuda.so.1 the runtime has loaded (no link against libcuda); null if
+// it is missing.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map of a row-major (rows, k) 16-bit matrix in boxes of WK x 128.
+CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* p,
+                  CUtensorMapDataType type, int rows, int k) {
+  cuuint64_t dims[2] = {static_cast<cuuint64_t>(k),
+                        static_cast<cuuint64_t>(rows)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(k) * 2};
+  cuuint32_t box[2] = {WK, 128};
+  cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(p), dims, strides, box,
+                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Returns 0, a cudaError_t, or minus the CUresult of a refused tensor map.
+template <typename T>
+int launch_wgmma(const void* a, const void* bt, void* c, int m, int n, int k,
+                 CUtensorMapDataType type, void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  if (k <= 0 || k % 8 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0
+      || reinterpret_cast<uintptr_t>(bt) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t tiles = static_cast<int64_t>((m + WM - 1) / WM)
+                        * ((n + WN - 1) / WN);
+  if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  CUtensorMap map_a, map_bt;
+  CUresult r = make_map(encode, &map_a, a, type, m, k);
+  if (r == CUDA_SUCCESS) r = make_map(encode, &map_bt, bt, type, n, k);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  // the ring passes the 48 KB a block gets unasked: raise the limit once
+  // for each device
+  static uint64_t smem_raised = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= 64 || !(smem_raised >> dev & 1)) {
+    e = cudaFuncSetAttribute(wgmma_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             WG_SMEM_BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 64) smem_raised |= uint64_t{1} << dev;
+  }
+  wgmma_kernel<T><<<static_cast<unsigned>(tiles), WG_THREADS, WG_SMEM_BYTES,
+                    static_cast<cudaStream_t>(stream)>>>(
+      map_a, map_bt, static_cast<T*>(c), m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int matmul_f32(const void* a, const void* b, void* c, int m, int n,
                           int k, void* stream) {
-  return launch<float>(a, b, c, m, n, k, stream);
+  return launch_fma<float>(a, b, c, m, n, k, stream);
 }
 
-extern "C" int matmul_bf16(const void* a, const void* b, void* c, int m,
+// bf16 and f16 take B^T (N, K) and k a multiple of 8 (the wrapper pads K).
+extern "C" int matmul_bf16(const void* a, const void* bt, void* c, int m,
                            int n, int k, void* stream) {
-  return launch<__nv_bfloat16>(a, b, c, m, n, k, stream);
+  return launch_wgmma<__nv_bfloat16>(a, bt, c, m, n, k,
+                                     CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, stream);
 }
 
-extern "C" int matmul_f16(const void* a, const void* b, void* c, int m, int n,
+extern "C" int matmul_f16(const void* a, const void* bt, void* c, int m, int n,
                           int k, void* stream) {
-  return launch<__half>(a, b, c, m, n, k, stream);
+  return launch_wgmma<__half>(a, bt, c, m, n, k,
+                              CU_TENSOR_MAP_DATA_TYPE_FLOAT16, stream);
 }

@@ -122,6 +122,16 @@ def build_library() -> Path:
     return so
 
 
+def count_sass(opcode: str) -> int:
+    """Lines of the built library's SASS (``cuobjdump -sass``, beside
+    nvcc) that hold `opcode`, e.g. "HGMMA" for wgmma."""
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(build_library())],
+                          check=True, capture_output=True, text=True,
+                          timeout=600).stdout
+    return sum(opcode in line for line in sass.splitlines())
+
+
 _LIB: ctypes.CDLL | None = None
 _FNS: dict = {}
 

@@ -11,6 +11,8 @@ Kernel and plain version see the same inputs; they sum in different orders
 an absolute floor of 1e-5 * max|y|.
 """
 
+import faulthandler
+
 import numpy as np
 import pytest
 import scipy.sparse as sps
@@ -869,24 +871,36 @@ def test_transpose_routing(cuda_device):
         assert got.is_contiguous() and torch.equal(got, x.t())
 
 
+@pytest.fixture
+def hang_guard():
+    """Ends the test process with a traceback if the test runs past 120 s:
+    a tensor-core kernel whose barrier never completes would hang."""
+    faulthandler.dump_traceback_later(120, exit=True)
+    yield
+    faulthandler.cancel_dump_traceback_later()
+
+
 @pytest.mark.parametrize("m,k,n", [(8, 8, 8), (100, 200, 50),
                                    (256, 512, 256), (300, 300, 300),
                                    (129, 1, 7), (1, 1000, 1), (130, 0, 5),
                                    (1030, 770, 513)])
-def test_matmul_kernel_matches_plain(cuda_device, m, k, n):
-    """K18 in float32 against its plain version and a float64 product at
-    the reference test's tolerance (rtol 1e-4, atol 1e-3); bfloat16 and
-    float16 against the float32 product of the rounded operands, to one
-    rounding of the output (rtol 1e-2). Operands are mean-zero, so that
-    rounding errors do not average out and TF32 would miss the tolerance."""
+def test_matmul_kernel_matches_plain(cuda_device, hang_guard, m, k, n):
+    """K18 in float32 (the FMA kernel, no transpose) against its plain
+    version and a float64 product at the reference test's tolerance (rtol
+    1e-4, atol 1e-3); bfloat16 and float16 (the tensor-core kernel: one K17
+    and one K18 launch a call, none at K = 0) against their plain version
+    and the float32 product of the rounded operands, to one rounding of the
+    output (1e-2). Operands are mean-zero, so that rounding errors do not
+    average out and TF32 would miss the tolerance."""
     from libhpc_tpu_torch.ops import matmul as mm
+    from libhpc_tpu_torch.ops import transpose as tr
 
     g = torch.Generator(device=cuda_device).manual_seed(m * 7 + n)
     a = torch.randn((m, k), device=cuda_device, generator=g)
     b = torch.randn((k, n), device=cuda_device, generator=g)
-    n0 = mm.MATMUL_LAUNCHES
+    n0, t0 = mm.MATMUL_LAUNCHES, tr.TRANSPOSE_LAUNCHES
     got = mm.matmul_pallas(a, b)
-    assert mm.MATMUL_LAUNCHES == n0 + 1
+    assert (mm.MATMUL_LAUNCHES, tr.TRANSPOSE_LAUNCHES) == (n0 + 1, t0)
     assert got.dtype == torch.float32 and got.shape == (m, n)
     torch.testing.assert_close(got, mm.matmul_pallas_torch(a, b), rtol=1e-4,
                                atol=1e-3)
@@ -894,10 +908,53 @@ def test_matmul_kernel_matches_plain(cuda_device, m, k, n):
                                rtol=1e-4, atol=1e-3)
     for dt in (torch.bfloat16, torch.float16):
         ah, bh = a.to(dt), b.to(dt)
+        n0, t0 = mm.MATMUL_LAUNCHES, tr.TRANSPOSE_LAUNCHES
         got = mm.matmul_pallas(ah, bh)
-        assert got.dtype == dt
+        torch.cuda.synchronize()
+        step = int(k > 0)
+        assert (mm.MATMUL_LAUNCHES, tr.TRANSPOSE_LAUNCHES) == (n0 + step,
+                                                               t0 + step)
+        assert got.dtype == dt and got.shape == (m, n)
+        torch.testing.assert_close(got.float(),
+                                   mm.matmul_pallas_torch(ah, bh).float(),
+                                   rtol=1e-2, atol=1e-2)
         torch.testing.assert_close(got.float(), ah.float() @ bh.float(),
                                    rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 64, 128), (300, 200, 130)])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16])
+def test_matmul_tensor_cores_identity_and_one_hot(cuda_device, hang_guard,
+                                                  dt, m, k, n):
+    """Exact products that expose a wrong wgmma descriptor, swizzle or
+    fragment layout (which give a transposed, shifted or half-zero C):
+    I @ B is B's first rows, A @ I is A's first columns, and a one-hot B
+    (a 1 at (p, q)) puts column p of A into column q of C."""
+    from libhpc_tpu_torch.ops import matmul as mm
+
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    a = torch.randn((m, k), device=cuda_device, generator=g).to(dt)
+    b = torch.randn((k, n), device=cuda_device, generator=g).to(dt)
+    eye = torch.eye(m, k, device=cuda_device, dtype=dt)
+    want = torch.zeros((m, n), dtype=dt, device=cuda_device)
+    want[:min(m, k)] = b[:min(m, k)]
+    assert torch.equal(mm.matmul_pallas(eye, b), want)
+    want = torch.zeros((m, n), dtype=dt, device=cuda_device)
+    want[:, :min(k, n)] = a[:, :min(k, n)]
+    assert torch.equal(
+        mm.matmul_pallas(a, torch.eye(k, n, device=cuda_device, dtype=dt)),
+        want)
+    for p, q in ((0, 0), (k - 1, n - 1), (k // 2, n // 3), (63, 127 % n)):
+        hot = torch.zeros((k, n), dtype=dt, device=cuda_device)
+        hot[p, q] = 1
+        want = torch.zeros((m, n), dtype=dt, device=cuda_device)
+        want[:, q] = a[:, p]
+        assert torch.equal(mm.matmul_pallas(a, hot), want), (p, q)
+
+
+def test_matmul_library_holds_hgmma(cuda_device):
+    """The built kernel library runs wgmma: its SASS holds HGMMA."""
+    assert _cuda_utils.count_sass("HGMMA") > 0
 
 
 @pytest.mark.parametrize("r", [0, 1, 4, 8, 64])
