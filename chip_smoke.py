@@ -27,7 +27,8 @@ bench/microarch.py, each kernel checked again past the 50 MB L2.
 
 Phases, one JSON line each:
   0 device     card, versions, kernel build seconds, the HGMMA (wgmma)
-               lines in the library's SASS (fails at 0)
+               lines in the library's SASS (fails at 0), registers and
+               spills of K18's FMA kernel and of the scan kernel
   1 spmv       sbell_spmv on cant/pwtk in f32 and bf16: kernels against
                their plain PyTorch versions on the card and against scipy;
                times of the near kernel and of the whole SpMV, each as
@@ -158,6 +159,9 @@ import time
 TOL_PLAIN = 1e-5      # kernel vs plain version: rtol, and atol * max|y|
 TOL_GATE = 2e-3       # vs scipy: the bench's correctness gate
 TOL_SCAN = 1e-4       # K13 vs float64: rtol and atol (test_scan_reduce.py)
+# scan sizes past a tile of 4096 and of 8192 (csrc/scan.cu's), and with many
+# more tiles than resident blocks
+EDGE_SIZES = (4097, 8193, (1 << 24) + 3)
 TOL_ROW = 1e-4        # K16 vs float64: rtol (test_scan_reduce.py)
 # K18 in float32 vs float64 at 1024^2: rtol 1e-4, atol 1e-3
 # (test_histogram_transpose.py); at K = 8192 the rounding of a correct FP32
@@ -1398,10 +1402,12 @@ def scan_case(kind, case, x, kernel, plain, library, check, kernel_times):
 
 def scan_phase(keys, dev, kernel_times, launches):
     """K14 on 500M int32 flags (digit 0 of the sort's keys == 0), exactly
-    against its plain version and int64 cumsum, and on a wraparound case;
-    K13 on 500M seeded f32 in [0, 1) within TOL_SCAN of a float64 cumsum
-    and of its plain version; both again at 2^22 (the reference corpus's
-    size); times beside torch.cumsum and the byte bound."""
+    against its plain version and int64 cumsum, bit for bit the same on a
+    second run, and on a wraparound case; K13 on 500M seeded f32 in [0, 1)
+    within TOL_SCAN of a float64 cumsum and of its plain version; both at
+    EDGE_SIZES against the same oracles, and again at 2^22 (the reference
+    corpus's size) with times beside torch.cumsum and the byte bound (one
+    pass: 8 bytes an element)."""
     import torch
 
     from libhpc_tpu_torch.ops import scan
@@ -1422,12 +1428,29 @@ def scan_phase(keys, dev, kernel_times, launches):
     if not torch.equal(out_i.long(),
                        torch.cumsum(flags, 0, dtype=torch.int64) - flags):
         raise AssertionError("scan: K14 differs from int64 cumsum")
+    # the look-back's order of adds varies from run to run: K14 must not
+    # change, K13 may in its last bits
+    if not torch.equal(scan.exclusive_scan_pallas(flags), out_i):
+        raise AssertionError("scan: two runs of K14 differ")
+    f32_repeat_equal = torch.equal(scan.exclusive_scan_pallas(xf), out_f)
     oracle = torch.cumsum(xf.double(), 0) - xf.double()
     err_f = max_err(out_f.double(), oracle)
     if not torch.allclose(out_f.double(), oracle, rtol=TOL_SCAN,
                           atol=TOL_SCAN):
         raise AssertionError(f"scan: K13 off the float64 oracle by {err_f}")
     del out_i, out_f, oracle
+    # a tile and one element; many more tiles than resident blocks
+    for size in EDGE_SIZES:
+        fi, ff = flags[:size].clone(), xf[:size].clone()
+        if not torch.equal(scan.exclusive_scan_pallas(fi).long(),
+                           torch.cumsum(fi, 0, dtype=torch.int64) - fi):
+            raise AssertionError(f"scan: K14 at n = {size} differs from "
+                                 "int64 cumsum")
+        want = torch.cumsum(ff.double(), 0) - ff.double()
+        if not torch.allclose(scan.exclusive_scan_pallas(ff).double(), want,
+                              rtol=TOL_SCAN, atol=TOL_SCAN):
+            raise AssertionError(f"scan: K13 at n = {size} off float64")
+    del fi, ff, want
 
     def close(got, want, what):
         if not torch.allclose(got, want, rtol=TOL_SCAN, atol=TOL_SCAN):
@@ -1459,7 +1482,10 @@ def scan_phase(keys, dev, kernel_times, launches):
     bound = {k: 8 * (n if k.endswith("500M") else 1 << 22) / PEAK_BYTES_S
              * 1e3 for k in rec}
     emit({"phase": "scan", "n": n, "k14_equal_to_int64_cumsum": True,
+          "k14_two_runs_bit_equal": True,
+          "k13_two_runs_bit_equal": f32_repeat_equal,
           "k13_max_abs_err_vs_float64": err_f, "wraparound_ok": True,
+          "edge_sizes_ok": list(EDGE_SIZES), "bytes_per_elem": 8,
           **launches["scan"],
           **{f"{k}_ms": r[0] for k, r in rec.items()},
           **{f"{k}_plain_ms": r[1] for k, r in rec.items()},
@@ -1629,15 +1655,17 @@ def fp32_bound_ratio(c, oracle, abs_prod, k: int) -> float:
 
 def matmul_phase(dev, kernel_times, launches):
     """K18 at 1024^2 and 8192^2 in float32, bfloat16 and float16 (the path:
-    one K18 launch each, and one K17 launch on B for the half widths) on
-    mean-zero operands, so that rounding errors do not average out.
+    one K18 launch each, and one K17 launch: on A for float32, on B for the
+    half widths) on mean-zero operands, so that rounding errors do not
+    average out.
     float32 against its plain version and a float64 product: TOL_MM (the
     reference test's) at 1024^2, and at both sizes within the float32
     rounding bound (fp32_bound_ratio < 1), which torch.matmul with TF32 on
-    must miss (the control, run once a size). bfloat16 and float16 against
-    the float32 product of their rounded operands (TOL_MM_HALF), with
-    K17's time on B, the call's CUDA-graph time and the CUPTI device times
-    of K17 and K18. Times beside torch.matmul (TF32 off)."""
+    must miss (the control, run once a size), with the FMA kernel's tile.
+    bfloat16 and float16 against the float32 product of their rounded
+    operands (TOL_MM_HALF). Every dtype with K17's time on its operand,
+    the call's CUDA-graph time and the CUPTI device times of K17 and K18.
+    Times beside torch.matmul (TF32 off)."""
     import torch
 
     from libhpc_tpu_torch.ops import matmul as mm
@@ -1726,26 +1754,31 @@ def matmul_phase(dev, kernel_times, launches):
                         f"{tag}_max_abs_err_vs_plain": t[2],
                         f"{tag}_max_abs_err_vs_oracle": err,
                         f"{tag}_tflop_s": 2 * n ** 3 / (t[0] * 1e-3) / 1e12})
-            if dtype != torch.float32:
-                # the call's device time without the host's gaps (graph
-                # replay), and its split by kernel (CUPTI)
-                _, by_name = device_ms(lambda: mm.matmul_pallas(a, b),
-                                       reps=3, want={"wgmma": 1,
-                                                     "transpose": 1})
-                split = {part: (sum(v for name, v in by_name.items()
-                                    if part in name) if by_name else None)
-                         for part in ("wgmma", "transpose")}
-                rec.update({
-                    f"{tag}_k17_ms": time_ms(lambda: tr.transpose_pallas(b),
-                                             reps=reps),
-                    f"{tag}_graph_ms": graph_ms(
-                        lambda: mm.matmul_pallas(a, b), reps=reps),
-                    f"{tag}_device_k18_ms": split["wgmma"],
-                    f"{tag}_device_k17_ms": split["transpose"]})
-            del a, b, abs_prod
+            # the call's device time without the host's gaps (graph
+            # replay), and its split by kernel (CUPTI); K17 runs on A for
+            # float32 (A^T), on B for the half widths (B^T)
+            k18 = "fma_kernel" if dtype == torch.float32 else "wgmma"
+            _, by_name = device_ms(lambda: mm.matmul_pallas(a, b), reps=3,
+                                   want={k18: 1, "transpose": 1})
+            split = {part: (sum(v for name, v in by_name.items()
+                                if part in name) if by_name else None)
+                     for part in (k18, "transpose")}
+            k17_in = a if dtype == torch.float32 else b
+            rec.update({
+                f"{tag}_k17_ms": time_ms(
+                    lambda: tr.transpose_pallas(k17_in), reps=reps),
+                f"{tag}_graph_ms": graph_ms(lambda: mm.matmul_pallas(a, b),
+                                            reps=reps),
+                f"{tag}_device_k18_ms": split[k18],
+                f"{tag}_device_k17_ms": split["transpose"]})
+            if dtype == torch.float32:
+                rec[f"{tag}_fma_tile"] = mm.fma_tile(
+                    n, n, torch.cuda.get_device_properties(
+                        dev).multi_processor_count)
+            del a, b, abs_prod, k17_in
     launches["matmul"] = {**counts,
                           "need": {"matmul": 2, "matmul_bf16": 2,
-                                   "matmul_f16": 2, "transpose": 4}}
+                                   "matmul_f16": 2, "transpose": 6}}
     torch.cuda.synchronize()
     emit({"phase": "matmul", **launches["matmul"],
           "tf32": torch.backends.cuda.matmul.allow_tf32, **rec})
@@ -2370,13 +2403,18 @@ def main() -> int:
     if hgmma == 0:
         raise AssertionError("the kernel library's SASS holds no HGMMA: "
                              "K18's half-width path runs no wgmma")
+    # registers and spills of the kernels redesigned last (K18's FMA
+    # kernel, K13/K14's one-pass scan)
+    ptxas = {fn: use for fn, use in
+             _cuda_utils.ptxas_usage("matmul.cu", "scan.cu").items()
+             if "fma_kernel" in fn or "scan_kernel" in fn}
     dev = torch.device("cuda")
     warm_up_card()
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build_s,
           "library": str(_cuda_utils.library_path().name),
-          "hgmma_sass_lines": hgmma})
+          "hgmma_sass_lines": hgmma, "ptxas": ptxas})
     kernels = run(dev)
     emit(kernels)
     print(smi, flush=True)

@@ -8,8 +8,8 @@
 //
 // The TPU kernel walks a (M/TM, N/TN, K/TK) grid whose K axis runs in
 // order and carries the float32 accumulator in VMEM. On Hopper blocks run
-// in no order, so a block owns a whole 128 x 128 tile of C, walks K itself
-// and keeps the accumulator in registers. Two kernels:
+// in no order, so a block owns a whole tile of C, walks K itself and keeps
+// the accumulator in registers. Two kernels:
 //
 // bfloat16 and float16: wgmma_kernel, on the tensor cores.
 //   - The wrapper hands over B^T (N, K), made by K17, so that A and B^T
@@ -36,14 +36,37 @@
 //     warp w, lane l, d[4j + 2h + e] is row 16w + l/4 + 8h, column
 //     8j + 2(l%4) + e) are rounded once to nearest even and stored two a
 //     word, masked at M and N.
-// float32: mm_kernel, FP32 FMAs on the CUDA cores, never TF32: the
+// float32: fma_kernel, FP32 FMAs on the CUDA cores, never TF32: the
 //   reference's tolerance (rtol 1e-4 at K = 300-512) needs float32's 24
-//   mantissa bits. Per K step a block stages A[128 x 8] (transposed, rows
-//   padded by 4 floats against bank conflicts) and B[8 x 128] in shared
-//   memory, zero-filling past M, N or K; each of 256 threads holds an
-//   8 x 8 sub-tile and does 64 FMAs a step.
+//   mantissa bits. Each output is one FMA chain over k in ascending order.
+//   What bounds it: the 2*M*N*K operations at the FP32 FMA rate, 67
+//   TFLOP/s on an H100 SXM; the FMA pipe must issue every cycle, so loads,
+//   barriers and the fill of the card have to hide behind it.
+//   - The wrapper hands over A^T (K, M), made by K17, and B (K, N), with M
+//     and N padded with zeros to multiples of 4 (ops/matmul.py:
+//     fma_operands): both are read along their rows, so a stage is FMA_BK
+//     rows of contiguous floats that 16-byte cp.async.cg copies put into
+//     shared memory already k-major, as the outer products read them; no
+//     transpose in the kernel. K is not padded: a copy past K has
+//     src-size 0 and fills zeros.
+//   - A ring of FMA_STAGES = 3 stages of (A^T FMA_BK x BM + B FMA_BK x BN),
+//     48 KB at 128 x 128, with cp.async groups: the copies of step
+//     q + 2 are in flight while step q's FMAs run, and one __syncthreads()
+//     a K step (FMA_BK = 16: 1024 FMAs a thread a barrier at 128 x 128).
+//   - 256 threads a block, each owning (BM/64) x (BN/64) sub-tiles of
+//     4 x 4 outputs (8 x 8 at 128 x 128): a warp's fragment reads are
+//     conflict-free 16-byte loads of 4 and 8 distinct words, double-buffered
+//     in registers (row kk + 1 loads while row kk's FMAs run); C is stored
+//     in 16-byte vectors where N is a multiple of 4, masked at M and N.
+//   - Tiles that fill the card: 128 x 128 tiles need two resident blocks
+//     on each of the 132 SMs to keep the FMA pipes busy. Where they give
+//     fewer tiles than the card has SMs (under half its block slots, e.g.
+//     64 at 1024^2), the host picks 64 x 64 tiles of the same template
+//     instead (256 at 1024^2, four resident an SM; ops/matmul.py:fma_tile).
+//     No split-K: it would add a pass and split each output's chain.
+//   - Tiles are taken in bands of GROUP_M tile rows, as wgmma_kernel's.
 //
-// What bounds it: the 2*M*N*K operations, at the tensor cores' dense
+// What bounds both: the 2*M*N*K operations, at the tensor cores' dense
 // rate for bf16/f16 (989 TFLOP/s on an H100 SXM) and at the CUDA cores'
 // FP32 rate for float32 (67 TFLOP/s).
 
@@ -57,98 +80,6 @@
 #include <dlfcn.h>
 
 namespace {
-
-// ---- float32: FP32 FMAs on the CUDA cores ---------------------------------
-
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 8;
-constexpr int TM = 8;
-constexpr int TN = 8;
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
-constexpr int APAD = 4;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-__device__ __forceinline__ void store(float v, float* o) { *o = v; }
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    mm_kernel(const T* __restrict__ a, const T* __restrict__ b,
-              T* __restrict__ c, int m, int n, int k) {
-  __shared__ __align__(16) float As[BK][BM + APAD];
-  __shared__ __align__(16) float Bs[BK][BN];
-  const int tid = threadIdx.x;
-  const int bm = blockIdx.y * BM;
-  const int bn = blockIdx.x * BN;
-  const int tr = tid / (BN / TN);  // thread's row group: rows tr*TM + i
-  const int tc = tid % (BN / TN);  // thread's column group: tc*TN + j
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < k; k0 += BK) {
-#pragma unroll
-    for (int e = tid; e < BM * BK; e += THREADS) {
-      const int r = e / BK, q = e % BK;
-      const int gr = bm + r, gq = k0 + q;
-      As[q][r] = (gr < m && gq < k)
-                     ? to_f32(a[static_cast<int64_t>(gr) * k + gq]) : 0.f;
-    }
-#pragma unroll
-    for (int e = tid; e < BK * BN; e += THREADS) {
-      const int q = e / BN, cc = e % BN;
-      const int gq = k0 + q, gc = bn + cc;
-      Bs[q][cc] = (gq < k && gc < n)
-                      ? to_f32(b[static_cast<int64_t>(gq) * n + gc]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < BK; ++q) {
-      float av[TM], bv[TN];
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[q][tr * TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[q][tr * TM + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[q][tc * TN]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[q][tc * TN + 4]);
-      av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
-      av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
-      bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
-      bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gr = bm + tr * TM + i;
-    if (gr >= m) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gc = bn + tc * TN + j;
-      if (gc < n) store(acc[i][j], c + static_cast<int64_t>(gr) * n + gc);
-    }
-  }
-}
-
-template <typename T>
-int launch_fma(const void* a, const void* b, void* c, int m, int n, int k,
-               void* stream) {
-  if (m <= 0 || n <= 0) return 0;
-  const int gy = (m + BM - 1) / BM;
-  if (gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + BN - 1) / BN, gy);
-  mm_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
-      m, n, k);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---- bfloat16 / float16: wgmma fed by a TMA ring ---------------------------
 
@@ -458,11 +389,222 @@ int launch_wgmma(const void* a, const void* bt, void* c, int m, int n, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- float32: FP32 FMAs on the CUDA cores, fed by a cp.async ring ---------
+
+constexpr int FMA_THREADS = 256;  // a 16 x 16 grid of threads
+constexpr int FMA_BK = 16;        // K rows a stage
+constexpr int FMA_STAGES = 3;
+// a ring of one stage would overwrite the stage being read
+static_assert(FMA_STAGES >= 2, "the ring needs two stages or more");
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  // src-size 0 reads nothing and fills the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(PENDING) : "memory");
+}
+
+// Copies K rows [k0, k0 + FMA_BK) x columns [c0, c0 + W) of a row-major
+// (k, ld) matrix into dst (FMA_BK x W floats, k-major) with 16-byte
+// cp.async; ld is a multiple of 4, so a copy is whole or past the edge
+// (then zero-filled, as are the rows past k).
+template <int W>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int k0, int c0, int k, int ld) {
+  constexpr int PER_ROW = W / 4;
+  static_assert(FMA_BK * PER_ROW % FMA_THREADS == 0, "whole copies a thread");
+#pragma unroll
+  for (int i = 0; i < FMA_BK * PER_ROW / FMA_THREADS; ++i) {
+    const int e = i * FMA_THREADS + static_cast<int>(threadIdx.x);
+    const int row = e / PER_ROW, col = (e % PER_ROW) * 4;
+    const int gk = k0 + row, gc = c0 + col;
+    const bool in = gk < k && gc < ld;
+    cp_async16(smem_u32(dst + row * W + col),
+               in ? src + static_cast<int64_t>(gk) * ld + gc : src, in);
+  }
+}
+
+// C (m x n) = A B from A^T (k x lda) and B (k x ldb), row-major, lda and
+// ldb = m and n rounded up to 4 (ops/matmul.py:fma_operands pads them with
+// zeros). One BM x BN tile of C a block; thread (tr, tc) of the 16 x 16
+// grid owns the 4 x 4 sub-tiles at rows 64 i + 4 tr, columns 64 j + 4 tc.
+template <int BM, int BN>
+__global__ void __launch_bounds__(FMA_THREADS, BM * BN >= 128 * 128 ? 2 : 4)
+    fma_kernel(const float* __restrict__ at, const float* __restrict__ b,
+               float* __restrict__ c, int m, int n, int k) {
+  constexpr int SI = BM / 64, SJ = BN / 64;  // 4 x 4 sub-tiles a thread
+  constexpr int A_TILE = FMA_BK * BM, STAGE = FMA_BK * (BM + BN);
+  extern __shared__ __align__(16) float ring[];
+  const int lda = (m + 3) & ~3, ldb = (n + 3) & ~3;
+
+  // this block's tile: bands of GROUP_M tile rows, walked column by column
+  const int tiles_m = (m + BM - 1) / BM;
+  const int tiles_n = (n + BN - 1) / BN;
+  const int band = GROUP_M * tiles_n;
+  const int first = (static_cast<int>(blockIdx.x) / band) * GROUP_M;
+  const int rows = min(tiles_m - first, GROUP_M);
+  const int in_band = static_cast<int>(blockIdx.x) % band;
+  const int bm = (first + in_band % rows) * BM;
+  const int bn = (in_band / rows) * BN;
+
+  // a warp covers 4 x 8 threads: its fragment reads are 4 and 8 distinct
+  // 16-byte words, one shared-memory wavefront each
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int tr = (warp / 2) * 4 + lane / 8;
+  const int tc = (warp % 2) * 8 + lane % 8;
+  const int steps = (k + FMA_BK - 1) / FMA_BK;
+
+  float acc[4 * SI][4 * SJ];
+#pragma unroll
+  for (int i = 0; i < 4 * SI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * SJ; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < FMA_STAGES - 1; ++s) {
+    if (s < steps) {
+      stage_rows<BM>(ring + s * STAGE, at, s * FMA_BK, bm, k, lda);
+      stage_rows<BN>(ring + s * STAGE + A_TILE, b, s * FMA_BK, bn, k, ldb);
+    }
+    cp_async_commit();  // empty groups keep the count of groups uniform
+  }
+
+  for (int q = 0; q < steps; ++q) {
+    // step q's copies (this thread's) have landed; after the barrier,
+    // everyone's have, and every thread is done with step q - 1's stage,
+    // which the copies of step q + STAGES - 1 now refill
+    cp_async_wait<FMA_STAGES - 2>();
+    __syncthreads();
+    const int next = q + FMA_STAGES - 1;
+    if (next < steps) {
+      float* s = ring + (next % FMA_STAGES) * STAGE;
+      stage_rows<BM>(s, at, next * FMA_BK, bm, k, lda);
+      stage_rows<BN>(s + A_TILE, b, next * FMA_BK, bn, k, ldb);
+    }
+    cp_async_commit();
+
+    const float* as = ring + (q % FMA_STAGES) * STAGE;
+    const float* bs = as + A_TILE;
+    // fragments in two register buffers: row kk + 1's load while row kk's
+    // FMAs run
+    float4 fa[2][SI], fb[2][SJ];
+#pragma unroll
+    for (int i = 0; i < SI; ++i)
+      fa[0][i] = *reinterpret_cast<const float4*>(as + 64 * i + 4 * tr);
+#pragma unroll
+    for (int j = 0; j < SJ; ++j)
+      fb[0][j] = *reinterpret_cast<const float4*>(bs + 64 * j + 4 * tc);
+#pragma unroll
+    for (int kk = 0; kk < FMA_BK; ++kk) {
+      const int cur = kk % 2;
+      if (kk + 1 < FMA_BK) {
+#pragma unroll
+        for (int i = 0; i < SI; ++i)
+          fa[cur ^ 1][i] = *reinterpret_cast<const float4*>(
+              as + (kk + 1) * BM + 64 * i + 4 * tr);
+#pragma unroll
+        for (int j = 0; j < SJ; ++j)
+          fb[cur ^ 1][j] = *reinterpret_cast<const float4*>(
+              bs + (kk + 1) * BN + 64 * j + 4 * tc);
+      }
+#pragma unroll
+      for (int i = 0; i < SI; ++i) {
+        const float av[4] = {fa[cur][i].x, fa[cur][i].y, fa[cur][i].z,
+                             fa[cur][i].w};
+#pragma unroll
+        for (int j = 0; j < SJ; ++j) {
+          const float bv[4] = {fb[cur][j].x, fb[cur][j].y, fb[cur][j].z,
+                               fb[cur][j].w};
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[4 * i + r][4 * j + e] =
+                  fmaf(av[r], bv[e], acc[4 * i + r][4 * j + e]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy may outlive the block (all are empty)
+
+  // epilogue: 16-byte stores where n is a multiple of 4, masked at m and n
+  const bool vec = n % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < SI; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = bm + 64 * i + 4 * tr + r;
+      if (row >= m) continue;
+#pragma unroll
+      for (int j = 0; j < SJ; ++j) {
+        const int col = bn + 64 * j + 4 * tc;
+        if (col >= n) continue;
+        float* p = c + static_cast<int64_t>(row) * n + col;
+        if (vec) {
+          *reinterpret_cast<float4*>(p) =
+              make_float4(acc[4 * i + r][4 * j], acc[4 * i + r][4 * j + 1],
+                          acc[4 * i + r][4 * j + 2], acc[4 * i + r][4 * j + 3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col + e < n) p[e] = acc[4 * i + r][4 * j + e];
+        }
+      }
+    }
+}
+
+template <int BM, int BN>
+int launch_fma(const float* at, const float* b, float* c, int m, int n, int k,
+               cudaStream_t stream) {
+  constexpr int smem = FMA_STAGES * FMA_BK * (BM + BN) * 4;
+  const int64_t tiles = static_cast<int64_t>((m + BM - 1) / BM)
+                        * ((n + BN - 1) / BN);
+  if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  // 48 KB at 128 x 128: at the limit a block gets unasked; raise it once
+  // for each device all the same
+  static uint64_t smem_raised = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= 64 || !(smem_raised >> dev & 1)) {
+    e = cudaFuncSetAttribute(fma_kernel<BM, BN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 64) smem_raised |= uint64_t{1} << dev;
+  }
+  fma_kernel<BM, BN><<<static_cast<unsigned>(tiles), FMA_THREADS, smem,
+                       stream>>>(at, b, c, m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-extern "C" int matmul_f32(const void* a, const void* b, void* c, int m, int n,
-                          int k, void* stream) {
-  return launch_fma<float>(a, b, c, m, n, k, stream);
+// float32 takes A^T (K, M rounded up to 4) and B (K, N rounded up to 4),
+// 16-byte aligned, and the tile (128 or 64) that ops/matmul.py:fma_tile
+// picks.
+extern "C" int matmul_f32(const void* at, const void* b, void* c, int m,
+                          int n, int k, int tile, void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  if (k < 0 || reinterpret_cast<uintptr_t>(at) % 16 != 0
+      || reinterpret_cast<uintptr_t>(b) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* a32 = static_cast<const float*>(at);
+  const auto* b32 = static_cast<const float*>(b);
+  auto* c32 = static_cast<float*>(c);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (tile == 128) return launch_fma<128, 128>(a32, b32, c32, m, n, k, s);
+  if (tile == 64) return launch_fma<64, 64>(a32, b32, c32, m, n, k, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // bf16 and f16 take B^T (N, K) and k a multiple of 8 (the wrapper pads K).

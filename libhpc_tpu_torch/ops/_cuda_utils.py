@@ -9,6 +9,8 @@ what a Hopper kernel needs around it:
   ``libhpc_tpu_torch/_build/`` under a name keyed by a hash of the sources
   and flags; it is loaded with ctypes. Importing this module builds
   nothing and touches no CUDA state.
+- ``ptxas_usage``: each kernel's registers and spills, from ``nvcc -Xptxas
+  -v``.
 - ``kernel_fn``: a C entry point of that library with its argtypes set
   (every pointer and the stream as c_void_p, sizes as c_int).
 - ``check_launch``: raises when an entry point returns a CUDA error.
@@ -25,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -130,6 +133,43 @@ def count_sass(opcode: str) -> int:
                           check=True, capture_output=True, text=True,
                           timeout=600).stdout
     return sum(opcode in line for line in sass.splitlines())
+
+
+def ptxas_usage(*sources: str) -> dict:
+    """Registers and spilled bytes of every kernel of the named csrc/
+    sources, as ``nvcc -Xptxas -v`` reports them (one nvcc per source, all
+    started together, objects discarded): mangled kernel name ->
+    {"registers", "spill_stores", "spill_loads"}."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    nvcc = find_nvcc()
+    jobs = []
+    for name in sources:
+        obj = BUILD_DIR / f"ptxas.{os.getpid()}.{Path(name).stem}.o"
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+             str(CSRC_DIR / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    usage, fn = {}, None
+    for obj, proc in jobs:
+        _, err = proc.communicate(timeout=600)
+        obj.unlink(missing_ok=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed:\n{err}")
+        for line in err.splitlines():
+            m = re.search(r"(?:entry function '|Function properties for )"
+                          r"([^' ]+)", line)
+            if m:
+                fn = m.group(1)
+                usage.setdefault(fn, {})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and fn:
+                usage[fn].update(spill_stores=int(m.group(1)),
+                                 spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                usage[fn]["registers"] = int(m.group(1))
+    return usage
 
 
 _LIB: ctypes.CDLL | None = None

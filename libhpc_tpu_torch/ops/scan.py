@@ -14,8 +14,9 @@ Port of ``libhpc_tpu/ops/scan.py``, the descendant of libHPC's hierarchical
                  1-D; float32 goes to K13 (``_exclusive_scan_f32``, the port
                  of ``_exclusive_scan_mxu``), integers of at most 32 bits to
                  K14 (``_exclusive_scan_int``, the port of
-                 ``_scan_tile_kernel``): both in ``csrc/scan.cu``, a
-                 reduce-then-scan over blocks of 4096 elements
+                 ``_scan_tile_kernel``): both in ``csrc/scan.cu``, one
+                 pass with a decoupled look-back over tiles of 8192
+                 elements (x read once, out written once)
 
 Integer dtypes: the reference keeps every integer dtype and wraps in it
 (int8 to uint32 alike, checked on the CPU). The port does the same: K14 adds
@@ -28,15 +29,16 @@ The reference's float32 kernel reached exact-to-rounding sums through a
 triangular matmul at ``Precision.HIGHEST``; K13 adds in FP32 on the CUDA
 cores, in another order, so it agrees with the reference to rounding
 (rtol 1e-4 against a float64 oracle, as tests/test_scan_reduce.py holds
-the reference). ``tile_cumsum`` and the (512,128) / (8,512) blockings are
-TPU mechanics and not ported; ``SUBLANES``, ``WIDE``, ``TILE`` and
-``MXU_ROWS`` keep the reference's values.
+the reference); where each tile's look-back stops sets how the tiles' sums
+associate, so its last bits may differ from run to run. K14 is exact.
+``tile_cumsum`` and the (512,128) / (8,512) blockings are TPU mechanics
+and not ported; ``SUBLANES``, ``WIDE``, ``TILE`` and ``MXU_ROWS`` keep the
+reference's values.
 
 Dispatch: CPU tensors take the plain versions (``*_torch``); CUDA tensors
 launch the kernels or raise. A numpy input is moved to ``device`` (default
 ``"cuda"``). ``SCAN_F32_LAUNCHES`` and ``SCAN_INT_LAUNCHES`` count the
-kernel calls of K13 and K14 (one a call; a call runs one to five kernels
-of ``csrc/scan.cu``, by size).
+kernel calls of K13 and K14 (one a call, one kernel launch each).
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ WIDE = 512              # lanes per row of the reference's integer kernel
 TILE = SUBLANES * WIDE  # elements per grid step of the reference's kernel
 MXU_ROWS = 512          # rows per grid step of the reference's f32 kernel
 
-BLOCK = 4096            # elements per block of csrc/scan.cu
+BLOCK = 8192            # elements per tile of csrc/scan.cu
 
 SCAN_F32_LAUNCHES = 0
 SCAN_INT_LAUNCHES = 0
@@ -84,12 +86,9 @@ def exclusive_scan(x, *, device="cuda") -> torch.Tensor:
 
 
 def scan_scratch_len(n: int) -> int:
-    """Block sums the kernel keeps, over all of its levels (scan.cu)."""
-    total = 0
-    while n > BLOCK:
-        n = cdiv(n, BLOCK)
-        total += n
-    return max(total, 1)
+    """64-bit words of the kernel's scratch (scan.cu): the tile counter,
+    then one status word a tile."""
+    return 1 + cdiv(n, BLOCK)
 
 
 def _exclusive_scan_f32_torch(x: torch.Tensor) -> torch.Tensor:
@@ -115,7 +114,8 @@ def _launch(x: torch.Tensor, dtype: torch.dtype, name: str) -> torch.Tensor:
     out = torch.empty_like(x)
     if n == 0:
         return out
-    scratch = torch.empty(scan_scratch_len(n), dtype=dtype, device=dev)
+    # the status words start at "nothing published", the counter at 0
+    scratch = torch.zeros(scan_scratch_len(n), dtype=torch.int64, device=dev)
     fn = kernel_fn(name, 3, 1)
     with torch.cuda.device(dev):
         rc = fn(x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n,

@@ -713,11 +713,15 @@ def test_merge_sort_kv_on_card(cuda_device, n, log2c, log2w):
                        torch.arange(n, dtype=torch.int32, device=cuda_device))
 
 
-@pytest.mark.parametrize("n", [1, 111, 4096, 4097, 262_201, 1 << 24,
+@pytest.mark.parametrize("n", [1, 111, 4095, 4096, 4097, 8191, 8192, 8193,
+                               3 * 8192, 262_201, 1 << 24, (1 << 24) + 3,
                                (1 << 24) + 5, 30_000_001])
-def test_scan_kernels_match_plain(cuda_device, n):
-    """K14 exactly against its plain version and int64 cumsum; K13 within
-    rtol/atol 1e-4 of a float64 oracle and of its plain version."""
+def test_scan_kernels_match_plain(cuda_device, hang_guard, n):
+    """K14 exactly against its plain version and int64 cumsum, and bit for
+    bit the same on a second run; K13 within rtol/atol 1e-4 of a float64
+    oracle and of its plain version. Sizes: one tile or less, exact
+    multiples of the 8192-element tile and ragged ones, and many more tiles
+    than blocks (2^24 + 3: 2049 tiles for the ~264 persistent blocks)."""
     from libhpc_tpu_torch.ops import scan
 
     g = torch.Generator(device=cuda_device).manual_seed(n)
@@ -730,13 +734,33 @@ def test_scan_kernels_match_plain(cuda_device, n):
     # int32 sums wrap past 2^31 (n >= 2^24 here)
     want = (torch.cumsum(xi, 0, dtype=torch.int64) - xi).to(torch.int32)
     assert torch.equal(got, want)
+    assert torch.equal(scan.exclusive_scan_pallas(xi), got)
     xf = torch.rand(n, device=cuda_device, generator=g)
     gf = scan.exclusive_scan_pallas(xf)
-    assert (scan.SCAN_INT_LAUNCHES, scan.SCAN_F32_LAUNCHES) == (i0 + 1, f0 + 1)
+    assert (scan.SCAN_INT_LAUNCHES, scan.SCAN_F32_LAUNCHES) == (i0 + 2, f0 + 1)
     oracle = (torch.cumsum(xf.double(), 0) - xf.double()).float()
     torch.testing.assert_close(gf, oracle, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(gf, scan._exclusive_scan_f32_torch(xf),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [5, 4097, 100_003])
+def test_scan_kernel_unaligned_input(cuda_device, hang_guard, n):
+    """A view one element into its storage takes the kernel's element-wise
+    loads: the same sums as the aligned copy (int32 exactly)."""
+    from libhpc_tpu_torch.ops import scan
+
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    base = torch.randint(-1000, 1000, (n + 1,), dtype=torch.int32,
+                         device=cuda_device, generator=g)
+    x = base[1:]
+    assert x.data_ptr() % 16 != 0
+    assert torch.equal(scan.exclusive_scan_pallas(x),
+                       scan._exclusive_scan_int_torch(x.clone()))
+    xf = base[1:].float()[1:]
+    torch.testing.assert_close(scan.exclusive_scan_pallas(xf),
+                               scan._exclusive_scan_f32_torch(xf), rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_scan_kernel_wraps_and_narrow_dtypes(cuda_device):
@@ -883,15 +907,18 @@ def hang_guard():
 @pytest.mark.parametrize("m,k,n", [(8, 8, 8), (100, 200, 50),
                                    (256, 512, 256), (300, 300, 300),
                                    (129, 1, 7), (1, 1000, 1), (130, 0, 5),
-                                   (1030, 770, 513)])
+                                   (1030, 770, 513), (1024, 1024, 1024),
+                                   (2048, 300, 1158)])
 def test_matmul_kernel_matches_plain(cuda_device, hang_guard, m, k, n):
-    """K18 in float32 (the FMA kernel, no transpose) against its plain
-    version and a float64 product at the reference test's tolerance (rtol
-    1e-4, atol 1e-3); bfloat16 and float16 (the tensor-core kernel: one K17
-    and one K18 launch a call, none at K = 0) against their plain version
-    and the float32 product of the rounded operands, to one rounding of the
-    output (1e-2). Operands are mean-zero, so that rounding errors do not
-    average out and TF32 would miss the tolerance."""
+    """K18 in float32 (the FMA kernel after K17 on A: 64 x 64 tiles up to
+    1024^2, 128 x 128 at 2048 x 1158) against its plain version and a
+    float64 product at the reference test's tolerance (rtol 1e-4, atol
+    1e-3); bfloat16 and float16 (the tensor-core kernel after K17 on B)
+    against their plain version and the float32 product of the rounded
+    operands, to one rounding of the output (1e-2). Every dtype makes one
+    K17 and one K18 launch a call, none at K = 0. Operands are mean-zero,
+    so that rounding errors do not average out and TF32 would miss the
+    tolerance."""
     from libhpc_tpu_torch.ops import matmul as mm
     from libhpc_tpu_torch.ops import transpose as tr
 
@@ -900,7 +927,10 @@ def test_matmul_kernel_matches_plain(cuda_device, hang_guard, m, k, n):
     b = torch.randn((k, n), device=cuda_device, generator=g)
     n0, t0 = mm.MATMUL_LAUNCHES, tr.TRANSPOSE_LAUNCHES
     got = mm.matmul_pallas(a, b)
-    assert (mm.MATMUL_LAUNCHES, tr.TRANSPOSE_LAUNCHES) == (n0 + 1, t0)
+    torch.cuda.synchronize()
+    step = int(k > 0)
+    assert (mm.MATMUL_LAUNCHES, tr.TRANSPOSE_LAUNCHES) == (n0 + step,
+                                                           t0 + step)
     assert got.dtype == torch.float32 and got.shape == (m, n)
     torch.testing.assert_close(got, mm.matmul_pallas_torch(a, b), rtol=1e-4,
                                atol=1e-3)
@@ -948,6 +978,32 @@ def test_matmul_tensor_cores_identity_and_one_hot(cuda_device, hang_guard,
         hot = torch.zeros((k, n), dtype=dt, device=cuda_device)
         hot[p, q] = 1
         want = torch.zeros((m, n), dtype=dt, device=cuda_device)
+        want[:, q] = a[:, p]
+        assert torch.equal(mm.matmul_pallas(a, hot), want), (p, q)
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (67, 33, 130), (128, 16, 128),
+                                   (130, 17, 259), (513, 1000, 4)])
+def test_matmul_f32_tiles_match_plain(cuda_device, hang_guard, monkeypatch,
+                                      tile, m, k, n):
+    """Both tiles of the FMA kernel on every shape (fma_tile forced): edges
+    of M and N inside a 16-byte copy and inside a tile, K past the last
+    stage, against the plain version at rtol 1e-4, atol 1e-3; a one-hot B
+    (a 1 at (p, q)) puts column p of A into column q of C exactly."""
+    from libhpc_tpu_torch.ops import matmul as mm
+
+    monkeypatch.setattr(mm, "fma_tile", lambda *args: tile)
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n + tile)
+    a = torch.randn((m, k), device=cuda_device, generator=g)
+    b = torch.randn((k, n), device=cuda_device, generator=g)
+    torch.testing.assert_close(mm.matmul_pallas(a, b),
+                               mm.matmul_pallas_torch(a, b), rtol=1e-4,
+                               atol=1e-3)
+    for p, q in ((0, 0), (k - 1, n - 1), (k // 2, n // 3)):
+        hot = torch.zeros((k, n), device=cuda_device)
+        hot[p, q] = 1
+        want = torch.zeros((m, n), device=cuda_device)
         want[:, q] = a[:, p]
         assert torch.equal(mm.matmul_pallas(a, hot), want), (p, q)
 

@@ -417,3 +417,34 @@ def test_benches_default_to_the_card(name):
         return
     with pytest.raises((AssertionError, RuntimeError), match="CUDA|NVIDIA"):
         fn()
+
+
+def test_ptxas_usage_reads_the_nvcc_report(tmp_path, monkeypatch):
+    """ptxas_usage runs nvcc -Xptxas -v on each named source and maps each
+    kernel to its registers and spilled bytes (here a stand-in nvcc that
+    prints a report of two kernels, one of them spilling)."""
+    from libhpc_tpu_torch.ops import _cuda_utils
+
+    report = textwrap.dedent("""\
+        ptxas info    : 0 bytes gmem
+        ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
+        ptxas info    : Function properties for _Z3fooPf
+            0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+        ptxas info    : Used 125 registers, used 1 barriers, 400 bytes cmem[0]
+        ptxas info    : Compiling entry function '_Z3barPi' for 'sm_90a'
+        ptxas info    : Function properties for _Z3barPi
+            8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+        ptxas info    : Used 40 registers, 17408 bytes smem, 384 bytes cmem[0]
+        """)
+    (tmp_path / "report.txt").write_text(report)
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"#!{sys.executable}\nimport sys\n"
+                    f"sys.stderr.write(open({str(tmp_path / 'report.txt')!r})"
+                    ".read())\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_cuda_utils, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_cuda_utils, "BUILD_DIR", tmp_path / "build")
+    got = _cuda_utils.ptxas_usage("matmul.cu")
+    assert got == {
+        "_Z3fooPf": {"registers": 125, "spill_stores": 0, "spill_loads": 0},
+        "_Z3barPi": {"registers": 40, "spill_stores": 12, "spill_loads": 16}}

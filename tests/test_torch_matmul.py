@@ -2,8 +2,10 @@
 libhpc_tpu/ops/matmul.py (CPU; the reference's Pallas kernel in interpret
 mode, the port's plain version). Shapes and tolerance are
 tests/test_histogram_transpose.py's: rtol 1e-4, atol 1e-3 (float32 sums in
-another order), at its tiles of 128. Also the operand plan of the
-tensor-core kernel (``tma_operands``), which runs on the CPU too.
+another order), at its tiles of 128. Also the operand plans of the
+tensor-core kernel (``tma_operands``) and of the FMA kernel
+(``fma_operands``) and the FMA kernel's tile rule (``fma_tile``), which run
+on the CPU too.
 """
 
 import numpy as np
@@ -97,6 +99,54 @@ def test_tma_operands_realign_an_offset_view():
     at, bt = mm.tma_operands(a, b)
     assert at.data_ptr() % 16 == 0 and torch.equal(at, a)
     assert torch.equal(bt, b.t())
+
+
+@pytest.mark.parametrize("m,k,n", [(129, 7, 1), (1, 1000, 1),
+                                   (1030, 770, 513), (8, 8, 8)])
+def test_fma_operands(rng, m, k, n):
+    """The FMA kernel's operand plan: A^T (K, M4) and B (K, N4), M and N
+    padded with zeros to multiples of 4, K not padded, contiguous and
+    16-byte aligned; the product of the plan equals the plain version and
+    the reference's kernel (interpret mode) at the reference's tolerance."""
+    a = rng.standard_normal((m, k), np.float32)
+    b = rng.standard_normal((k, n), np.float32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    at, bp = mm.fma_operands(ta, tb)
+    m4, n4 = -(-m // 4) * 4, -(-n // 4) * 4
+    assert at.shape == (k, m4) and bp.shape == (k, n4)
+    assert at.dtype == bp.dtype == torch.float32
+    assert at.is_contiguous() and bp.is_contiguous()
+    assert at.data_ptr() % 16 == 0 and bp.data_ptr() % 16 == 0
+    assert not at[:, m:].any() and not bp[:, n:].any()
+    assert torch.equal(at[:, :m], ta.t()) and torch.equal(bp[:, :n], tb)
+    got = (at.t() @ bp)[:m, :n]
+    torch.testing.assert_close(got, mm.matmul_pallas_torch(ta, tb), **TOL)
+    want = np.asarray(ref_matmul(jnp.asarray(a), jnp.asarray(b),
+                                 tile_m=256, tile_n=256, tile_k=512))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_fma_operands_realign_an_offset_view():
+    """A contiguous B that starts 4 bytes into its storage is copied to an
+    aligned tensor (N = 16 needs no padding); A goes through the
+    transpose, a fresh tensor."""
+    base = torch.arange(1 + 40 * 16, dtype=torch.float32)
+    b = base[1:].view(40, 16)
+    assert b.data_ptr() % 16 != 0
+    a = base[1:1 + 3 * 40].view(3, 40)
+    at, bp = mm.fma_operands(a, b)
+    assert bp.data_ptr() % 16 == 0 and torch.equal(bp, b)
+    assert at.data_ptr() % 16 == 0 and torch.equal(at[:, :3], a.t())
+    assert at.shape == (40, 4) and not at[:, 3].any()
+
+
+@pytest.mark.parametrize("m,n,sms,tile", [
+    (1024, 1024, 132, 64), (8192, 8192, 132, 128), (2048, 2048, 132, 128),
+    (1408, 1536, 132, 128), (1408, 1408, 132, 64), (1, 1, 132, 64),
+    (1024, 1024, 64, 128)])
+def test_fma_tile(m, n, sms, tile):
+    """128 x 128 tiles unless they number fewer than the card's SMs."""
+    assert mm.fma_tile(m, n, sms) == tile
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

@@ -101,11 +101,13 @@ def test_scan_along_last_axis(rng):
 def test_constants_and_scratch():
     assert (scan.SUBLANES, scan.WIDE, scan.TILE, scan.MXU_ROWS) == (
         ref.SUBLANES, ref.WIDE, ref.TILE, ref.MXU_ROWS)
-    # block sums of every level of the kernel's reduce-then-scan
-    assert scan.scan_scratch_len(1) == 1
-    assert scan.scan_scratch_len(4096) == 1
-    assert scan.scan_scratch_len(4097) == 2
-    assert scan.scan_scratch_len(500_000_000) == 122_071 + 30
+    # the one-pass kernel's tile counter and one status word a tile of 8192
+    assert scan.scan_scratch_len(1) == 2
+    assert scan.scan_scratch_len(8191) == 2
+    assert scan.scan_scratch_len(8192) == 2
+    assert scan.scan_scratch_len(8193) == 3
+    assert scan.scan_scratch_len(3 * 8192) == 4
+    assert scan.scan_scratch_len(500_000_000) == 61_036 + 1
 
 
 def test_kernel_wrappers_on_cpu_are_the_plain_versions(rng):
