@@ -28,7 +28,8 @@ bench/microarch.py, each kernel checked again past the 50 MB L2.
 Phases, one JSON line each:
   0 device     card, versions, kernel build seconds, the HGMMA (wgmma)
                lines in the library's SASS (fails at 0), registers and
-               spills of K18's FMA kernel and of the scan kernel
+               spills of K18's FMA kernel, of the scan kernel, of the split
+               search and merge-path kernels and of K21b
   1 spmv       sbell_spmv on cant/pwtk in f32 and bf16: kernels against
                their plain PyTorch versions on the card and against scipy;
                times of the near kernel and of the whole SpMV, each as
@@ -52,16 +53,21 @@ Phases, one JSON line each:
                its plain version and scipy, with times
  10 sellp      SELL-P of Poisson 1024^2: K7 against its plain version and
                scipy, with times
- 11 sort       merge_sort_u32 (K8 chunk sort, K9 merge levels) on 500M
-               u32, exactly equal to torch.sort of the same keys; device
-               time (one call replayed as a CUDA graph) and wall time
-               beside torch.sort's and libHPC's 360 ms
+ 11 sort       merge_sort_u32 (K8 chunk sort, then each merge level a
+               split search and a K9 merge) on 500M u32, exactly equal to
+               torch.sort of the same keys; device time (one call replayed
+               as a CUDA graph) and wall time beside torch.sort's and
+               libHPC's 360 ms
  12 sort_segmented  the same on 100M u32 = [2^26, 2^24, 2^24] segments
                folded by two pair merges (K10)
- 13 sort_kernels  K8, the staged 2^16 chunk sort, K9 and K10 each exactly
-               against its plain version on the buffers of a 2^26 sort,
-               invert and unflip cases included, with device times (CUDA
-               graph replays)
+ 13 sort_kernels  K8, the staged 2^16 chunk sort, the split search, K9
+               and K10 each exactly against its plain version on the
+               buffers of a 2^26 sort, invert and unflip cases included,
+               with device times (CUDA graph replays); for K9/K10 the
+               merge kernel alone and the split kernel alone (one launch
+               replayed as a graph, and by CUPTI inside the whole call)
+               beside the whole call; the merge kernel at windows of 2^11,
+               2^12 and 2^13
  14 radix      radix_sort_pipeline, bitonic_sort, sort_u32 and argsort_u32
                (plain torch) on 2^22 keys against torch.sort
  15 histogram  K15 on the four 8-bit digit planes of the 500M keys, exactly
@@ -77,7 +83,9 @@ Phases, one JSON line each:
                pair merges; the (key, payload) pairs equal the input's
  18 kv_kernels K11, the staged 2^15 chunk, K12 as a level and as a pair,
                each exactly against its plain version (keys and payloads)
-               on the buffers of a 2^26 sort of distinct keys
+               on the buffers of a 2^26 sort of distinct keys; K12 alone
+               and the split search alone beside the whole call, as in
+               sort_kernels
  19 scan       K14 on 500M int32 flags (digit 0 of the keys == 0) exactly
                against its plain version and int64 cumsum, on a wraparound
                case; K13 on 500M seeded f32 within 1e-4 of a float64
@@ -122,7 +130,9 @@ Phases, one JSON line each:
                the reference's keys, no error); K21a (S = 1024, 1024
                tiles), K21b (2^17 gathers of 4 KB rows, G = 256), K21c and
                K21d (2^20 rows) each exactly against its plain version,
-               times beside torch.take_along_dim and index_select
+               times beside torch.take_along_dim and index_select; K21b's
+               ring (stages, rows a stage, rows in flight) and a sweep of
+               its stages and stage rows, each exactly
  28 launches   the kernel launch counts of each path, which must cover
                every call it made (the sort, kv sort, scan, histogram,
                dense-layer and micro-architecture paths: exactly the
@@ -130,8 +140,10 @@ Phases, one JSON line each:
                before its path runs and read just after, and the launches
                made to compare a kernel with its plain version are not
                counted
- 29 sort_split one 500M sort profiled (CUPTI): device time of K8, of K9
-               and of the torch ops of the merge-path search
+ 29 sort_split one 500M sort profiled (CUPTI) in a child process
+               (chip_smoke.py --sort-split, a fresh profiler): device time
+               of K8, of K9, of the split search kernel and of the torch
+               ops left
  30 library    torch.sparse CSR matvecs of the SpMV kernels' matrices,
                the library yardstick of K1-K7 (after every profile)
 
@@ -151,6 +163,7 @@ needs CUDA and the repository beside it.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -941,19 +954,21 @@ def sorted_bits(bits):
 
 
 def expected_sort_launches(n: int, log2c: int, sm=None) -> dict:
-    """Launches of the chunk kernel, of the merge kernel and of its pair
-    merges that module sm's sort (sort_merge: K8, K9/K10; sort_merge_kv:
-    K11, K12) makes for n keys: per segment of 2^p one chunk sort, the
-    merge levels inside a chunk larger than the chunk kernel takes, p -
-    log2c levels; one pair merge per extra segment."""
+    """Launches of the chunk kernel, of the merge kernel, of its pair
+    merges and of the split kernel that module sm's sort (sort_merge: K8,
+    K9/K10; sort_merge_kv: K11, K12) makes for n keys: per segment of 2^p
+    one chunk sort, the merge levels inside a chunk larger than the chunk
+    kernel takes, p - log2c levels; one pair merge per extra segment; one
+    split search a merge."""
     if sm is None:
         from libhpc_tpu_torch.ops import sort_merge as sm
 
     segs = sm._decompose(n, 1 << log2c)
     sub = min(log2c, sm.LOG2C_KERNEL)
     levels = sum(log2c - sub + s.bit_length() - 1 - log2c for s in segs)
-    return {"chunk": len(segs), "merge": levels + len(segs) - 1,
-            "pair": len(segs) - 1}
+    merges = levels + len(segs) - 1
+    return {"chunk": len(segs), "merge": merges, "pair": len(segs) - 1,
+            "split": merges}
 
 
 def sort_path(n: int, dev, segs_want, launches, name: str):
@@ -971,10 +986,12 @@ def sort_path(n: int, dev, segs_want, launches, name: str):
     ku = keys.view(torch.uint32)
     torch.cuda.synchronize()
     sm.CHUNK_LAUNCHES = sm.MERGE_LAUNCHES = sm.PAIR_LAUNCHES = 0
+    sm.SPLIT_LAUNCHES = 0
     out = sm.merge_sort_u32(ku)
     torch.cuda.synchronize()
     launches[name] = {"chunk": sm.CHUNK_LAUNCHES,
                       "merge": sm.MERGE_LAUNCHES, "pair": sm.PAIR_LAUNCHES,
+                      "split": sm.SPLIT_LAUNCHES,
                       "need": expected_sort_launches(n, sm.DEFAULT_LOG2C)}
     if out.dtype != torch.uint32 or out.shape != (n,):
         raise AssertionError(f"{name}: {out.dtype} {tuple(out.shape)}")
@@ -1023,6 +1040,113 @@ def hold_exact(kind, case, kernel, plain, region, kernel_times,
     return kernel_times[kind][case]
 
 
+MERGE_KERNEL = "merge_path_kernel"      # K9, K10, K12 (csrc/sort_merge.cu)
+SPLIT_KERNEL = "split_search_kernel"    # the split search, one a merge
+
+
+def cupti_kernels(call, names, reps: int = 3) -> dict:
+    """Device ms per call (CUPTI) of the kernels whose names hold each of
+    `names`, each launched once a call; None where the profile was
+    lossy."""
+    total, split = device_ms(call, reps=reps, want={n: 1 for n in names})
+    if not total:
+        return {n: None for n in names}
+    return {n: sum(v for k, v in split.items() if n in k) for n in names}
+
+
+def hold_merge(kind, case, call, plain, region, kernel_times, plan,
+               plan_plain, merge):
+    """A merge (K9, K10 or K12) against its plain version, exactly, and
+    its split plan against the split kernel's plain version, exactly.
+    `call` is the whole merge (split search, then merge), `merge(p)` the
+    merge kernel alone on a plan p. Times: the merge kernel alone and the
+    split kernel alone, each one launch replayed as a CUDA graph (their
+    kinds' times), and by CUPTI inside the whole call where the profile
+    is whole; the whole call by graph replay. Returns them in ms."""
+    import torch
+
+    whole, plain_ms, err = hold_exact(kind, case, call, plain, region,
+                                      kernel_times)
+    p, want = plan(), plan_plain()
+    if p.shape != want.shape or not torch.equal(p, want):
+        raise AssertionError(f"{case}: split kernel differs from its plain "
+                             f"version in {int((p != want).sum())} places")
+    del want
+    alone = graph_ms(lambda: merge(p))
+    split_alone = graph_ms(plan)
+    split_plain = graph_ms(plan_plain)
+    t = cupti_kernels(call, (MERGE_KERNEL, SPLIT_KERNEL))
+    kernel_times[kind][case] = (alone, plain_ms, err)
+    kernel_times["sort_split_search"][f"{kind}/{case}"] = (
+        split_alone, split_plain, 0.0)
+    return {"kernel": alone, "split": split_alone, "call": whole,
+            "plain": plain_ms, "split_plain": split_plain,
+            "kernel_cupti": t[MERGE_KERNEL], "split_cupti": t[SPLIT_KERNEL]}
+
+
+def merge_window_sweep(x, log2p: int, windows=(11, 12, 13)) -> dict:
+    """The merge kernel alone (one launch on a ready plan, replayed as a
+    CUDA graph) and the split kernel at each window 2^lw of `windows`, on
+    one level of a 2^log2p sort (runs of 2^16), keys alone and with
+    payloads, each exactly against its plain version: the data behind
+    sort_merge.LOG2W_KERNEL."""
+    import torch
+
+    from libhpc_tpu_torch.ops import sort_merge as sm
+    from libhpc_tpu_torch.ops import sort_merge_kv as kv
+
+    P = 1 << log2p
+    PAD = 1 << sm.DEFAULT_LOG2W
+    rows = (2 * PAD + P + 16 * 128) // 128
+    log2r = sm.DEFAULT_LOG2C
+    runs = sm._chunk_sort_torch(x, PAD // 128, rows, log2c=log2r,
+                                alternate=True, invert=False, unflip=False)
+    v = torch.arange(P, dtype=torch.int32, device=x.device)
+    bk, bv = kv._chunk_sort_kv_torch(x, v, PAD // 128, rows, log2c=log2r,
+                                     alternate=True, invert=False,
+                                     unflip=False)
+    out, keep = {}, sm.LOG2W_KERNEL
+    try:
+        for lw in windows:
+            sm.LOG2W_KERNEL = lw
+
+            def keys_only(lw=lw):
+                return sm._merge_level(runs, P, PAD, rows, log2r, lw, False,
+                                       False)
+
+            def with_payloads(lw=lw):
+                return kv._merge_level_kv(bk, bv, P, PAD, rows, log2r, lw,
+                                          False, False)
+
+            want = sm._merge_level_torch(runs, P, PAD, rows, log2r, lw,
+                                         False, False)
+            wk, _ = kv._merge_level_kv_torch(bk, bv, P, PAD, rows, log2r, lw,
+                                             False, False)
+            gk, gv = with_payloads()
+            region = slice(PAD, PAD + P)
+            if not (torch.equal(keys_only().reshape(-1)[region],
+                                want.reshape(-1)[region])
+                    and torch.equal(gk.reshape(-1)[region],
+                                    wk.reshape(-1)[region])
+                    and torch.equal(torch.sort(gv.reshape(-1)[region]).values,
+                                    v)):
+                raise AssertionError(f"merge window 2^{lw}: the kernel "
+                                     "differs from its plain version")
+            del want, wk, gk, gv
+            p = sm._level_plan(runs, P, PAD, log2r, lw, False)
+            pk = sm._level_plan(bk, P, PAD, log2r, lw, False)
+            out[f"2^{lw}"] = {
+                "keys_ms": graph_ms(lambda: sm._merge_launch(
+                    runs, runs, p, PAD, rows, lw, False, pair=False)),
+                "kv_ms": graph_ms(lambda: kv._merge_launch_kv(
+                    bk, bv, bk, bv, pk, PAD, rows, lw, False, pair=False)),
+                "split_ms": graph_ms(lambda: sm._level_plan(
+                    runs, P, PAD, log2r, lw, False))}
+    finally:
+        sm.LOG2W_KERNEL = keep
+    return out
+
+
 def sort_kernels_phase(keys, kernel_times, log2p: int = 26):
     """K8, K9 and K10 each against its plain version on the buffers of a
     2^log2p-key sort (default log2c/log2w), invert and unflip cases
@@ -1054,18 +1178,31 @@ def sort_kernels_phase(keys, kernel_times, log2p: int = 26):
                 data, kernel_times)
             rec[f"{kind}_2^{log2c}_{case}"] = t
 
+    merges = {}
     for log2r, inv, unf in ((sm.DEFAULT_LOG2C, False, False),
                             (log2p - 1, True, True)):
         runs = sm._chunk_sort_torch(x, PAD // 128, rows, log2c=log2r,
                                     alternate=True, invert=False,
                                     unflip=False)
         lw = min(sm.DEFAULT_LOG2W, log2r)
-        rec[f"sort_merge_level_r2^{log2r}"] = hold_exact(
-            "sort_merge_level", f"2^{log2p}/r2^{log2r}",
+        kw = min(lw, sm.LOG2W_KERNEL)
+        case = f"2^{log2p}/r2^{log2r}"
+        merges[f"sort_merge_level_r2^{log2r}"] = hold_merge(
+            "sort_merge_level", case,
             lambda: sm._merge_level(runs, P, PAD, rows, log2r, lw, inv, unf),
             lambda: sm._merge_level_torch(runs, P, PAD, rows, log2r, lw,
                                           inv, unf),
-            data, kernel_times)
+            data, kernel_times,
+            lambda: sm._level_plan(runs, P, PAD, log2r, kw, inv),
+            lambda: sm._level_plan_torch(runs, P, PAD, log2r, kw, inv),
+            lambda p: sm._merge_launch(runs, runs, p, PAD, rows, kw, unf,
+                                       pair=False))
+        rec[f"sort_merge_level_r2^{log2r}"] = (
+            kernel_times["sort_merge_level"][case])
+        # the split search's bytes: its eight int32 rows a window, and the
+        # two keys each of its log2r + 1 steps compares, read once
+        WORK[("sort_split_search", f"sort_merge_level/{case}")] = (
+            4 * (P >> kw) * (8 + 2 * (log2r + 1)), 0)
         del runs
 
     LB = P >> 2
@@ -1089,20 +1226,36 @@ def sort_kernels_phase(keys, kernel_times, log2p: int = 26):
                                sm.DEFAULT_LOG2C, sm.DEFAULT_LOG2W,
                                invert=True, unflip=False)
     lw = min(sm.DEFAULT_LOG2W, log2p - 2)   # merge_sort_u32's window rule
+    kw = min(lw, sm.LOG2W_KERNEL)
     for desc_out, unf in ((True, False), (False, True)):
-        rec[f"sort_merge_pair_desc{int(desc_out)}"] = hold_exact(
-            "sort_merge_pair",
-            f"2^{log2p}+2^{log2p - 2}/desc{int(desc_out)}",
+        case = f"2^{log2p}+2^{log2p - 2}/desc{int(desc_out)}"
+        merges[f"sort_merge_pair_desc{int(desc_out)}"] = hold_merge(
+            "sort_merge_pair", case,
             lambda: sm._merge_pair(bufA, bufB, P, LB, PAD, lw, desc_out,
                                    unf),
             lambda: sm._merge_pair_torch(bufA, bufB, P, LB, PAD, lw,
                                          desc_out, unf),
-            lambda b: data(b, P + LB), kernel_times)
+            lambda b: data(b, P + LB), kernel_times,
+            lambda: sm._pair_plan(bufA, bufB, P, LB, PAD, kw, desc_out),
+            lambda: sm._pair_plan_torch(bufA, bufB, P, LB, PAD, kw,
+                                        desc_out),
+            lambda p: sm._merge_launch(bufA, bufB, p, PAD,
+                                       sm._pair_rows(P, LB, PAD), kw, unf,
+                                       pair=True))
+        rec[f"sort_merge_pair_desc{int(desc_out)}"] = (
+            kernel_times["sort_merge_pair"][case])
     del bufA, bufB
     torch.cuda.synchronize()
+    sweep = merge_window_sweep(x, log2p)
     emit({"phase": "sort_kernels", "P": P,
+          "kernel_window": 1 << sm.LOG2W_KERNEL,
+          "merge_window_sweep": sweep,
           **{f"{k}_ms": v[0] for k, v in rec.items()},
           **{f"{k}_plain_ms": v[1] for k, v in rec.items()},
+          **{f"{k}_{part}_ms": t[part] for k, t in merges.items()
+             for part in ("kernel", "split", "call", "split_plain",
+                          "kernel_cupti", "split_cupti")},
+          "split_equal_to_plain": True,
           "max_abs_err": max(v[2] for v in rec.values())})
 
 
@@ -1189,6 +1342,7 @@ def kv_path(name, n, keys, fn, launches, segs_want):
     indices, the library call computing the same output."""
     import torch
 
+    from libhpc_tpu_torch.ops import sort_merge as sm
     from libhpc_tpu_torch.ops import sort_merge_kv as kv
 
     segs = kv._decompose(n, 1 << kv.DEFAULT_LOG2C)
@@ -1196,10 +1350,11 @@ def kv_path(name, n, keys, fn, launches, segs_want):
         raise AssertionError(f"{name}: {n} decomposes into {segs}")
     torch.cuda.synchronize()
     kv.CHUNK_LAUNCHES = kv.MERGE_LAUNCHES = kv.PAIR_LAUNCHES = 0
+    sm.SPLIT_LAUNCHES = 0
     out = fn()
     torch.cuda.synchronize()
     launches[name] = {"chunk": kv.CHUNK_LAUNCHES, "merge": kv.MERGE_LAUNCHES,
-                      "pair": kv.PAIR_LAUNCHES,
+                      "pair": kv.PAIR_LAUNCHES, "split": sm.SPLIT_LAUNCHES,
                       "need": expected_sort_launches(n, kv.DEFAULT_LOG2C, kv)}
     want = sorted_bits(keys)
     if out[0].dtype != torch.uint32 or not torch.equal(
@@ -1223,6 +1378,7 @@ def argsort_phase(keys, launches):
     with keys[order] the sorted keys; device and wall time."""
     import torch
 
+    from libhpc_tpu_torch.ops import sort_merge as sm
     from libhpc_tpu_torch.ops import sort_merge_kv as kv
 
     n = keys.shape[0]
@@ -1242,7 +1398,7 @@ def argsort_phase(keys, launches):
     emit({"phase": "argsort", "n": n, "segments": segs,
           "log2c": kv.DEFAULT_LOG2C, "log2w": kv.DEFAULT_LOG2W,
           "kernel_sub_chunk": 1 << kv.LOG2C_KERNEL,
-          "kernel_window": 1 << kv.LOG2W_KERNEL,
+          "kernel_window": 1 << sm.LOG2W_KERNEL,
           "equal_to_torch_sort": True, "order_is_permutation": True,
           **launches["argsort"], **rec,
           "g_keys_per_s_device": n / (rec["device_ms"] * 1e-3) / 1e9,
@@ -1293,6 +1449,7 @@ def kv_kernels_phase(dev, kernel_times, log2p: int = 26):
     cases included; device times by CUDA-graph replay."""
     import torch
 
+    from libhpc_tpu_torch.ops import sort_merge as sm
     from libhpc_tpu_torch.ops import sort_merge_kv as kv
 
     P = 1 << log2p
@@ -1313,7 +1470,7 @@ def kv_kernels_phase(dev, kernel_times, log2p: int = 26):
     def data(bufs, n=P):
         return torch.cat([b.reshape(-1)[PAD:PAD + n] for b in bufs])
 
-    rec = {}
+    rec, merges = {}, {}
     for case, kw in {"asc": dict(alternate=True, invert=False, unflip=False),
                      "invert_unflip": dict(alternate=True, invert=True,
                                            unflip=True)}.items():
@@ -1333,13 +1490,21 @@ def kv_kernels_phase(dev, kernel_times, log2p: int = 26):
                                          alternate=True, invert=False,
                                          unflip=False)
         lw = min(kv.DEFAULT_LOG2W, log2r)
-        rec[f"sort_merge_kv_level_r2^{log2r}"] = hold_exact(
-            "sort_merge_kv_level", f"2^{log2p}/r2^{log2r}",
+        kw = min(lw, sm.LOG2W_KERNEL)
+        case = f"2^{log2p}/r2^{log2r}"
+        merges[f"sort_merge_kv_level_r2^{log2r}"] = hold_merge(
+            "sort_merge_kv_level", case,
             lambda: kv._merge_level_kv(bk, bv, P, PAD, rows, log2r, lw, inv,
                                        unf),
             lambda: kv._merge_level_kv_torch(bk, bv, P, PAD, rows, log2r, lw,
                                              inv, unf),
-            data, kernel_times)
+            data, kernel_times,
+            lambda: sm._level_plan(bk, P, PAD, log2r, kw, inv),
+            lambda: sm._level_plan_torch(bk, P, PAD, log2r, kw, inv),
+            lambda p: kv._merge_launch_kv(bk, bv, bk, bv, p, PAD, rows, kw,
+                                          unf, pair=False))
+        rec[f"sort_merge_kv_level_r2^{log2r}"] = (
+            kernel_times["sort_merge_kv_level"][case])
         del bk, bv
 
     ak, av = kv._sort_segment_kv(x, v, kv.DEFAULT_LOG2C, kv.DEFAULT_LOG2W,
@@ -1348,15 +1513,23 @@ def kv_kernels_phase(dev, kernel_times, log2p: int = 26):
                                  kv.DEFAULT_LOG2C, kv.DEFAULT_LOG2W,
                                  invert=True, unflip=False)
     lw = min(kv.DEFAULT_LOG2W, log2p - 2)
+    kw = min(lw, sm.LOG2W_KERNEL)
     for desc_out, unf in ((True, False), (False, True)):
-        rec[f"sort_merge_kv_pair_desc{int(desc_out)}"] = hold_exact(
-            "sort_merge_kv_pair",
-            f"2^{log2p}+2^{log2p - 2}/desc{int(desc_out)}",
+        case = f"2^{log2p}+2^{log2p - 2}/desc{int(desc_out)}"
+        merges[f"sort_merge_kv_pair_desc{int(desc_out)}"] = hold_merge(
+            "sort_merge_kv_pair", case,
             lambda: kv._merge_pair_kv(ak, av, bk, bv, P, LB, PAD, lw,
                                       desc_out, unf),
             lambda: kv._merge_pair_kv_torch(ak, av, bk, bv, P, LB, PAD, lw,
                                             desc_out, unf),
-            lambda b: data(b, P + LB), kernel_times)
+            lambda b: data(b, P + LB), kernel_times,
+            lambda: sm._pair_plan(ak, bk, P, LB, PAD, kw, desc_out),
+            lambda: sm._pair_plan_torch(ak, bk, P, LB, PAD, kw, desc_out),
+            lambda p: kv._merge_launch_kv(ak, av, bk, bv, p, PAD,
+                                          sm._pair_rows(P, LB, PAD), kw, unf,
+                                          pair=True))
+        rec[f"sort_merge_kv_pair_desc{int(desc_out)}"] = (
+            kernel_times["sort_merge_kv_pair"][case])
     del ak, av, bk, bv
 
     flipped = keys ^ FLIP
@@ -1376,6 +1549,10 @@ def kv_kernels_phase(dev, kernel_times, log2p: int = 26):
     emit({"phase": "kv_kernels", "P": P, "distinct_keys": True,
           **{f"{k}_ms": r[0] for k, r in rec.items()},
           **{f"{k}_plain_ms": r[1] for k, r in rec.items()},
+          **{f"{k}_{part}_ms": t[part] for k, t in merges.items()
+             for part in ("kernel", "split", "call", "split_plain",
+                          "kernel_cupti", "split_cupti")},
+          "split_equal_to_plain": True,
           "max_abs_err": max(r[2] for r in rec.values())})
 
 
@@ -2010,6 +2187,10 @@ def overlap_phase(dev, kernel_times, launches) -> None:
              * 1e3 for w in t}})
 
 
+# K21b's ring shapes timed on the 2^17 x 4 KB case: (stages, rows a stage)
+DMA_SWEEP = ((2, 32), (3, 32), (4, 16), (4, 32), (4, 64), (6, 32), (8, 16),
+             (8, 32), (2, 128), (3, 128))
+
 # launches of each microarch kernel when its bench runs at its defaults:
 # (iters + iters_small) * (1 + reps) of the bench's time_iterated call
 MICROARCH_NEED = {"lane_shuffle": 9 * 4, "dma_gather": 9 * 4,
@@ -2088,7 +2269,20 @@ def microarch_phase(dev, kernel_times, launches) -> None:
     table2 = table.view(n_table, R * 128)
     LIBRARY_MS["dma_gather"] = time_ms(
         lambda: table2.index_select(0, rows), reps=10)
-    del table, rows, table2
+    stages, stage_rows = ma.gather_plan(R, G)
+    # past the L2 a repeated row is read again: each gather read once
+    one_read_ms = (nbytes(rows) + 2 * n_gather * R * 128 * 4) / PEAK_BYTES_S
+    want = ma.dma_gather_torch(rows, table, R)
+    sweep = {}
+    for st, sr in DMA_SWEEP:
+        def gather(st=st, sr=sr):
+            return ma.dma_gather(rows, table, R, G, stages=st, stage_rows=sr)
+
+        if not torch.equal(gather(), want):
+            raise AssertionError(f"dma_gather: a ring of {st} x {sr} rows "
+                                 "differs from its plain version")
+        sweep[f"{st}x{sr}"] = time_ms(gather, reps=10)
+    del table, rows, table2, want
 
     x = rand_on((1 << 20, 128), dev, DENSE_SEED + 10)
     for kind in ("cmpex_roll", "cmpex_reshape"):
@@ -2101,6 +2295,10 @@ def microarch_phase(dev, kernel_times, launches) -> None:
     torch.cuda.synchronize()
     emit({"phase": "microarch", **launches["microarch"],
           "dma_gather_distinct_rows": distinct,
+          "dma_gather_stages": stages, "dma_gather_stage_rows": stage_rows,
+          "dma_gather_rows_in_flight_per_block": stages * stage_rows,
+          "dma_gather_bound_one_read_a_gather_ms": one_read_ms * 1e3,
+          "dma_gather_sweep_ms": sweep,
           **{f"{k}_ms": r[0] for k, r in rec.items()},
           **{f"{k}_plain_ms": r[1] for k, r in rec.items()},
           **{f"{k}_library_ms": LIBRARY_MS.get(k) for k in rec},
@@ -2111,38 +2309,62 @@ def microarch_phase(dev, kernel_times, launches) -> None:
                           ("cmpex_reshape", "2^20"))}})
 
 
-def sort_split_phase(dev) -> None:
-    """Where the 500M sort's device time goes: one call profiled (CUPTI),
-    kernels summed by name. Last of all the profiles, because one of this
-    size makes the profiler drop records in the profiles after it."""
+SORT_SPLIT_ARG = "--sort-split"
+
+
+def sort_split_phase() -> None:
+    """Where the 500M sort's device time goes, profiled in a child process
+    of its own (``chip_smoke.py --sort-split``): in this process, after its
+    other profiles, the profiler lost records of that sort (K8's among
+    them)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          SORT_SPLIT_ARG], capture_output=True, text=True,
+                         timeout=900)
+    if res.returncode != 0:
+        raise AssertionError(f"sort_split: the profiling process failed "
+                             f"({res.returncode}): {res.stderr[-3000:]}")
+    emit(json.loads(res.stdout.strip().splitlines()[-1]))
+
+
+def sort_split_profile() -> dict:
+    """One 500M sort profiled (CUPTI), kernels summed by name: K8, K9's 16
+    merges, their 16 split searches, and whatever torch ops are left."""
     import torch
 
     from libhpc_tpu_torch.ops import sort_merge as sm
 
-    ku = sort_keys(500_000_000, dev).view(torch.uint32)
+    ku = sort_keys(500_000_000, torch.device("cuda")).view(torch.uint32)
     total, split = device_ms(lambda: sm.merge_sort_u32(ku), reps=1,
-                             want={"chunk_kernel": 1, "merge_kernel": 16})
+                             want={"chunk_kernel": 1, MERGE_KERNEL: 16,
+                                   SPLIT_KERNEL: 16})
     complete = bool(total)
     if not complete:    # keep what a lossy profile saw, marked as such
         total, split = device_ms(lambda: sm.merge_sort_u32(ku), reps=1)
     if not total:
         raise AssertionError("sort_split: the profiler saw no device work")
-    kernels = {"K8 chunk_kernel": 0.0, "K9 merge_kernel": 0.0}
+    kernels = {"K8 chunk_kernel": 0.0, f"K9 {MERGE_KERNEL}": 0.0,
+               SPLIT_KERNEL: 0.0}
     torch_ops = {}
     for name, ms in split.items():
         if "chunk_kernel" in name:
             kernels["K8 chunk_kernel"] += ms
-        elif "merge_kernel" in name:
-            kernels["K9 merge_kernel"] += ms
+        elif MERGE_KERNEL in name:
+            kernels[f"K9 {MERGE_KERNEL}"] += ms
+        elif SPLIT_KERNEL in name:
+            kernels[SPLIT_KERNEL] += ms
         else:
             short = name.split("<")[0].split("(")[0].replace("void ", "")
             torch_ops[short] = torch_ops.get(short, 0.0) + ms
-    emit({"phase": "sort_split", "n": 500_000_000, "cupti_ms": total,
-          "records_complete": complete,
-          **{f"{k}_ms": v for k, v in kernels.items()},
-          "torch_ops_ms": sum(torch_ops.values()),
-          "torch_ops_top_ms": dict(sorted(torch_ops.items(),
-                                          key=lambda kv: -kv[1])[:4])})
+    return {"phase": "sort_split", "n": 500_000_000, "cupti_ms": total,
+            "records_complete": complete,
+            **{f"{k}_ms": v for k, v in kernels.items()},
+            "torch_ops_ms": sum(torch_ops.values()),
+            "torch_ops_top_ms": dict(sorted(torch_ops.items(),
+                                            key=lambda kv: -kv[1])[:4])}
 
 
 def library_phase(dev) -> None:
@@ -2199,6 +2421,7 @@ def run(dev):
     kernel_times = {k: {} for k in (
         "near", "far", "dia", "dia_probe", "sell", "sellp", "sort_chunk",
         "sort_chunk_staged", "sort_merge_level", "sort_merge_pair",
+        "sort_split_search",
         "histogram", "sort_chunk_kv", "sort_chunk_kv_staged",
         "sort_merge_kv_level", "sort_merge_kv_pair", "scan_int",
         "scan_f32", "row_sum", "transpose", "matmul", "matmul_bf16",
@@ -2258,7 +2481,7 @@ def run(dev):
     overlap_phase(dev, kernel_times, family)
     microarch_phase(dev, kernel_times, family)
     check_family_launches(family)
-    sort_split_phase(dev)
+    sort_split_phase()
     library_phase(dev)
     emit({"phase": "launches", "near": near, "far": far,
           "matvecs": matvecs, **family})
@@ -2290,9 +2513,9 @@ def run(dev):
     near_src = "libhpc_tpu_torch/csrc/sbell_near.cu"
     merge_src = "libhpc_tpu_torch/csrc/sort_merge.cu"
     sort_paths = {k: family["sort"][k] + family["sort_segmented"][k]
-                  for k in ("chunk", "merge", "pair")}
+                  for k in ("chunk", "merge", "pair", "split")}
     kv_paths = {k: family["argsort"][k] + family["sort_kv_segmented"][k]
-                for k in ("chunk", "merge", "pair")}
+                for k in ("chunk", "merge", "pair", "split")}
     chunk_src = "libhpc_tpu_torch/csrc/sort_chunk.cu"
     scan_src = "libhpc_tpu_torch/csrc/scan.cu"
     dia_src = "libhpc_tpu_torch/csrc/dia.cu"
@@ -2330,6 +2553,11 @@ def run(dev):
         entry("sort_merge_pair", "sort_merge_pair", merge_src,
               "libhpc_tpu/ops/sort_pallas.py:430", sort_paths["pair"],
               ["2^26+2^24/desc1"]),
+        # the split search fed K9/K10/K12 by scalar prefetch on the TPU
+        entry("sort_split_search", "sort_split_search", merge_src,
+              "libhpc_tpu/ops/sort_pallas.py:198",
+              sort_paths["split"] + kv_paths["split"],
+              ["sort_merge_level/2^26/r2^16"]),
         entry("histogram", "histogram", "libhpc_tpu_torch/csrc/histogram.cu",
               "libhpc_tpu/ops/histogram.py:59",
               family["histogram"]["hist"], ["plane0"]),
@@ -2392,6 +2620,9 @@ def main() -> int:
         return 1
     from libhpc_tpu_torch.ops import _cuda_utils
 
+    if sys.argv[1:] == [SORT_SPLIT_ARG]:
+        emit(sort_split_profile())
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
@@ -2404,10 +2635,14 @@ def main() -> int:
         raise AssertionError("the kernel library's SASS holds no HGMMA: "
                              "K18's half-width path runs no wgmma")
     # registers and spills of the kernels redesigned last (K18's FMA
-    # kernel, K13/K14's one-pass scan)
-    ptxas = {fn: use for fn, use in
-             _cuda_utils.ptxas_usage("matmul.cu", "scan.cu").items()
-             if "fma_kernel" in fn or "scan_kernel" in fn}
+    # kernel, K13/K14's one-pass scan, the split search and merge-path
+    # kernels of K9/K10/K12, K21b)
+    ptxas = {fn: use for fn, use in _cuda_utils.ptxas_usage(
+                 "matmul.cu", "scan.cu", "sort_merge.cu",
+                 "microarch.cu").items()
+             if any(k in fn for k in ("fma_kernel", "scan_kernel",
+                                      MERGE_KERNEL, SPLIT_KERNEL,
+                                      "dma_gather_kernel"))}
     dev = torch.device("cuda")
     warm_up_card()
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),

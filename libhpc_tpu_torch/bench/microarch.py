@@ -12,8 +12,8 @@ the kernels are designed around. On the card:
   lane_shuffle      128-lane dynamic gather within a table row
                     (take_along_axis on axis 1), the SBELL x-gather
                     primitive: K21a ``lane_shuffle``
-  dma_gather        random 4 KB row gathers staged through shared memory
-                    by cp.async: K21b ``dma_gather``
+  dma_gather        random 4 KB row gathers staged through a ring in
+                    shared memory by bulk copies (TMA): K21b ``dma_gather``
   roll_vs_reshape   one compare-exchange pass by a one-lane rotate (K21c
                     ``cmpex_roll``) vs by pairing adjacent lanes (K21d
                     ``cmpex_reshape``), the layout question behind the
@@ -26,10 +26,12 @@ function, on the TPU as here: the roll pairs even lane 2k with lane 2k - 1
 odd lanes only.
 
 The TPU sizing is layout, not semantics. ``dma_gather`` takes the
-reference's R (rows a gather) and G (gathers in flight): a block keeps
-min(G R, 64) rows in flight, since the reference's G R rows (1 MB at the
-default G = 256) do not fit a block's shared memory; the record keeps G as
-``in_flight`` and adds ``rows_in_flight_per_block``.
+reference's R (rows a gather) and G (gathers in flight): a block keeps a
+ring of ``stages`` stages of ``stage_rows`` rows (``gather_plan``: whole
+gathers a stage where they fit, never more rows than G gathers), since the
+reference's G R rows (1 MB at the default G = 256) do not fit a block's
+shared memory; the record keeps G as ``in_flight`` and adds the ring's
+``stages``, ``stage_rows`` and ``rows_in_flight_per_block``.
 
 Every timing uses the harness's delta method. The reference multiplies
 each gather index by ``_live_flag(v)``, a runtime 1, so that XLA cannot
@@ -55,13 +57,19 @@ import torch
 
 from libhpc_tpu_torch.bench.harness import time_iterated
 from libhpc_tpu_torch.ops import reduce
-from libhpc_tpu_torch.ops._cuda_utils import (as_tensor, check_launch,
+from libhpc_tpu_torch.ops._cuda_utils import (as_tensor, cdiv, check_launch,
                                               check_tensor,
                                               current_stream_ptr,
                                               kernel_device, kernel_fn)
 
 LANE = 128
-STAGE_ROWS = 64   # rows a dma_gather block keeps in flight (csrc/microarch.cu)
+# K21b's ring (csrc/microarch.cu): stages a block cycles through, and the
+# rows of 512 bytes a stage holds at most
+DMA_STAGES = 4
+STAGE_ROWS = 32
+DMA_MAX_STAGES = 8
+DMA_MAX_PIECES = 32   # copies a stage: one a lane of the block's warp
+DMA_RING_BYTES = 224 << 10   # of the 227 KB of shared memory a block may use
 
 LANE_SHUFFLE_LAUNCHES = 0
 DMA_GATHER_LAUNCHES = 0
@@ -144,12 +152,36 @@ def dma_gather_torch(idx: torch.Tensor, table: torch.Tensor,
         0, idx.long()).reshape(-1, LANE)
 
 
+def gather_plan(R: int, G: int, stages: int = DMA_STAGES,
+                stage_rows: int = STAGE_ROWS) -> tuple[int, int]:
+    """(stages, rows a stage) of K21b's ring for gathers of R rows with G
+    in flight: a stage holds whole gathers where R rows fit in stage_rows
+    (at most DMA_MAX_PIECES of them), else stage_rows rows of one gather;
+    the ring holds no more rows than G gathers and no more than
+    DMA_RING_BYTES, and at least two stages (one loading while one is
+    stored)."""
+    if R < 1 or G < 1 or stage_rows < 1 or not 2 <= stages <= DMA_MAX_STAGES:
+        raise ValueError(f"gather_plan: R = {R}, G = {G}, {stages} stages "
+                         f"of {stage_rows} rows")
+    if R <= stage_rows:
+        rows = R * min(stage_rows // R, DMA_MAX_PIECES, G)
+    else:
+        rows = stage_rows
+    fit = DMA_RING_BYTES // (rows * LANE * 4)
+    if fit < 2:
+        raise ValueError(f"gather_plan: two stages of {rows} rows pass "
+                         f"{DMA_RING_BYTES} bytes of shared memory")
+    return max(2, min(stages, cdiv(G * R, rows), fit)), rows
+
+
 def dma_gather(idx: torch.Tensor, table: torch.Tensor, R: int = 8,
-               G: int = 256) -> torch.Tensor:
+               G: int = 256, *, stages: int = DMA_STAGES,
+               stage_rows: int = STAGE_ROWS) -> torch.Tensor:
     """K21b: idx (n_gather,) int32 in [0, n_table), table (n_table R, 128)
     float32 -> (n_gather R, 128) float32. G is the reference's gathers in
-    flight; a block here keeps min(G R, 64) rows in flight. The kernel
-    clamps indices into [0, n_table)."""
+    flight; a block here keeps the ring of ``gather_plan(R, G, stages,
+    stage_rows)`` in flight. The kernel clamps indices into
+    [0, n_table)."""
     global DMA_GATHER_LAUNCHES
     if idx.ndim != 1 or table.ndim != 2 or table.shape[1] != LANE \
             or R < 1 or G < 1 or table.shape[0] % R:
@@ -167,10 +199,11 @@ def dma_gather(idx: torch.Tensor, table: torch.Tensor, R: int = 8,
         raise ValueError("dma_gather: the kernel takes < 2^31 rows")
     if n_gather and not n_table:
         raise ValueError("dma_gather: indices into an empty table")
+    n_stages, rows = gather_plan(R, G, stages, stage_rows)
     out = torch.empty((n_gather * R, LANE), dtype=torch.float32, device=dev)
     if n_gather:
         _launch("dma_gather_f32", (idx, table, out),
-                (n_table, n_gather, R, min(G * R, STAGE_ROWS)), dev)
+                (n_table, n_gather, R, rows, n_stages), dev)
         DMA_GATHER_LAUNCHES += 1
     return out
 
@@ -295,7 +328,7 @@ def bench_lane_shuffle(S: int = 1024, n_tiles: int = 16, *, device="cuda"):
 
 def bench_dma_gather(n_table: int = 1 << 12, n_gather: int = 1 << 14,
                      R: int = 8, G: int = 256, *, device="cuda"):
-    """Random (R, 128)-row gather rate, staged by cp.async."""
+    """Random (R, 128)-row gather rate, staged by bulk copies."""
     rng = np.random.default_rng(3)
     table = as_tensor(rng.random((n_table * R, LANE), np.float32), device)
     idx = as_tensor(rng.integers(0, n_table, n_gather, dtype=np.int32),
@@ -306,9 +339,11 @@ def bench_dma_gather(n_table: int = 1 << 12, n_gather: int = 1 << 14,
 
     per = time_iterated(step, torch.zeros((R, LANE), device=device), iters=8,
                         iters_small=1)
+    stages, rows = gather_plan(R, G)
     _emit("dma_gather", g_descriptors_per_s=n_gather / per / 1e9,
           gb_per_s=n_gather * R * LANE * 4 / per / 1e9, rows_per_dma=R,
-          in_flight=G, rows_in_flight_per_block=min(G * R, STAGE_ROWS))
+          in_flight=G, stages=stages, stage_rows=rows,
+          rows_in_flight_per_block=stages * rows)
 
 
 def bench_roll_vs_reshape(rows: int = 2048, *, device="cuda"):

@@ -79,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 
+#include "hopper_async.cuh"
+
 namespace {
 
 // ---- bfloat16 / float16: wgmma fed by a TMA ring ---------------------------
@@ -96,49 +98,6 @@ constexpr int WG_SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment
 constexpr int GROUP_M = 8;                       // tile rows in a band
 // consumers release a stage only after issuing the next one's wgmma
 static_assert(STAGES >= 2, "a ring of one stage deadlocks");
-// a barrier wait that polls this long (about 10 s at the card's clock)
-// waits for bytes that never come: trap rather than hang the card
-constexpr long long HANG_CYCLES = 20000000000LL;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed (a fresh
-// barrier counts its phase before as complete: parity 1 passes at once).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long t0 = -1;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    const long long now = clock64();
-    if (t0 < 0) {
-      t0 = now;
-    } else if (now - t0 > HANG_CYCLES) {
-      __trap();
-    }
-  }
-}
 
 // 2-D TMA load of the box at (c0 innermost, c1) into shared memory at dst;
 // completion is reported to bar as bytes.
@@ -258,7 +217,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       mbar_init(smem_u32(&full[s]), 1);
       mbar_init(smem_u32(&empty[s]), CONSUMERS * 4);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 

@@ -2,7 +2,9 @@
 // (sm_90a), K8.
 //
 // Replaces the TPU kernel libhpc_tpu/ops/sort_pallas.py:_chunk_kernel. For
-// chunk c of C = 2^log2c raw u32 bit patterns x[cC .. cC+C):
+// chunk c of C = 2^log2c raw u32 bit patterns x[cC .. cC+C), where x
+// holds n_valid of them and the rest count as 0xFFFFFFFF (the sort's pad,
+// so that a segment need not be copied to its padded length first):
 //
 //   y = x ^ 0x80000000                  (u32 order becomes int32 order)
 //   out[pad + cC .. pad + cC + C) = y sorted, descending iff
@@ -49,18 +51,18 @@ constexpr int MAX_THREADS = 1024;
 constexpr int32_t FLIP = INT32_MIN;
 
 __global__ void __launch_bounds__(MAX_THREADS)
-    chunk_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
-                 int log2c, int64_t pad, int alternate, int invert,
-                 int unflip) {
+    chunk_kernel(const int32_t* __restrict__ x, int64_t n_valid,
+                 int32_t* __restrict__ out, int log2c, int64_t pad,
+                 int alternate, int invert, int unflip) {
   __shared__ int32_t sh[1 << MAX_LOG2C];
   const int64_t c = blockIdx.x;
   const int C = 1 << log2c;
   const bool desc = (alternate && (c & 1)) != (invert != 0);
   const int32_t dmask = desc ? -1 : 0;
 
-  const int32_t* src = x + c * C;
+  const int64_t c0 = c * C;
   for (int i = threadIdx.x; i < C; i += blockDim.x)
-    sh[i] = src[i] ^ FLIP ^ dmask;
+    sh[i] = (c0 + i < n_valid ? x[c0 + i] : -1) ^ FLIP ^ dmask;
   __syncthreads();
 
   for (int k = 2; k <= C; k <<= 1) {
@@ -134,17 +136,19 @@ __global__ void __launch_bounds__(MAX_THREADS)
 
 }  // namespace
 
-extern "C" int sort_chunk_i32(const void* x, void* out, int n_chunks,
-                              int log2c, int pad, int alternate, int invert,
-                              int unflip, void* stream) {
-  if (log2c < 1 || log2c > MAX_LOG2C || n_chunks < 0 || pad < 0)
+// x: n_valid raw keys (n_valid <= n_chunks 2^log2c), the rest 0xFFFFFFFF.
+extern "C" int sort_chunk_i32(const void* x, void* out, int n_valid,
+                              int n_chunks, int log2c, int pad, int alternate,
+                              int invert, int unflip, void* stream) {
+  if (log2c < 1 || log2c > MAX_LOG2C || n_chunks < 0 || pad < 0 ||
+      n_valid < 0 || int64_t{n_valid} > (int64_t{n_chunks} << log2c))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_chunks == 0) return 0;
   int threads = (1 << log2c) / 2;
   if (threads > MAX_THREADS) threads = MAX_THREADS;
   chunk_kernel<<<n_chunks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(x), static_cast<int32_t*>(out), log2c, pad,
-      alternate, invert, unflip);
+      static_cast<const int32_t*>(x), n_valid, static_cast<int32_t*>(out),
+      log2c, pad, alternate, invert, unflip);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,9 +6,9 @@ what a Hopper kernel needs around it:
 - the kernel builder: every ``csrc/*.cu`` is compiled by its own nvcc for
   sm_90a, all at once, and the objects are linked into one shared library
   with a plain C interface, at the first launch, into
-  ``libhpc_tpu_torch/_build/`` under a name keyed by a hash of the sources
-  and flags; it is loaded with ctypes. Importing this module builds
-  nothing and touches no CUDA state.
+  ``libhpc_tpu_torch/_build/`` under a name keyed by a hash of the sources,
+  the headers they share (``csrc/*.cuh``) and the flags; it is loaded with
+  ctypes. Importing this module builds nothing and touches no CUDA state.
 - ``ptxas_usage``: each kernel's registers and spills, from ``nvcc -Xptxas
   -v``.
 - ``kernel_fn``: a C entry point of that library with its argtypes set
@@ -74,9 +74,10 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Where the kernel library for the current sources and flags lives."""
+    """Where the kernel library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libhpc_kernels_{h.hexdigest()[:16]}.so"

@@ -69,6 +69,8 @@ def _segment_reduce(data, segment_ids, num_segments, device, reduce):
     ids = _segment_ids(segment_ids, num_segments, data.device)
     if data.is_floating_point():
         fill = float("-inf") if reduce == "amax" else float("inf")
+    elif data.dtype == torch.bool:   # the identity: False for max, True for min
+        fill = reduce != "amax"
     else:
         info = torch.iinfo(data.dtype)
         fill = info.min if reduce == "amax" else info.max

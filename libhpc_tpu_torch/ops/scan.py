@@ -67,9 +67,12 @@ _NARROW_INTS = (torch.int8, torch.uint8, torch.int16, torch.uint16)
 
 
 def _cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive sum along the last axis in x's own dtype."""
+    """Inclusive sum along the last axis in x's own dtype (bool counts in
+    int32, as jnp.cumsum promotes it)."""
     if x.dtype in _SIGNED:
         return _cumsum(x.view(_SIGNED[x.dtype])).view(x.dtype)
+    if x.dtype == torch.bool:
+        return torch.cumsum(x, dim=-1, dtype=torch.int32)
     return torch.cumsum(x, dim=-1, dtype=x.dtype)
 
 
@@ -82,7 +85,8 @@ def exclusive_scan(x, *, device="cuda") -> torch.Tensor:
     x = as_tensor(x, device)
     if x.dtype in _SIGNED:
         return exclusive_scan(x.view(_SIGNED[x.dtype])).view(x.dtype)
-    return _cumsum(x) - x
+    c = _cumsum(x)
+    return c - x.to(c.dtype)
 
 
 def scan_scratch_len(n: int) -> int:

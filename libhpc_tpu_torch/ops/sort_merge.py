@@ -13,14 +13,17 @@ Port of ``libhpc_tpu/ops/sort_pallas.py``:
             equals the reference's chunk-sort output.
   phase 2  merge levels — ``_merge_level``: runs of R become runs of 2R.
             Each output window's sources are located by a merge-path binary
-            search (``_level_scalars``, torch, vectorized over windows);
-            kernel K9 (``csrc/sort_merge.cu``, the port of
-            ``_merge_kernel``) masks the two candidate windows, takes the
-            bitonic halver (elementwise min) into shared memory and cleans
-            up with log2 W stages.
+            search: the split kernel (``csrc/sort_merge.cu:
+            split_search_kernel``, one launch a level, one thread a window)
+            runs ``_level_scalars``' search on the card and writes its seven
+            arrays and, eighth, the count of the window's outputs that come
+            from A (``_level_plan``). Kernel K9 (``csrc/sort_merge.cu:
+            merge_path_kernel``, the port of ``_merge_kernel``) then reads
+            exactly those A and B elements and merges them along the merge
+            path: one read and one write an element a level.
   fold     ``_merge_pair``: two separate buffers of unequal lengths merged
-            the same way (``_pair_scalars``); K10, the port of
-            ``_pair_merge_kernel``, is K9's kernel with two sources.
+            the same way (``_pair_scalars``, ``_pair_plan``); K10, the port
+            of ``_pair_merge_kernel``, is K9's kernel with two sources.
 
 The reference's buffer layout and domain are kept, so every intermediate
 buffer can be compared with the reference's over its data region: a
@@ -33,17 +36,20 @@ reference's are.
 
 The window: the reference's default W = 2^17 (512 KB) does not fit shared
 memory. The kernels take windows of W_h = 2^min(log2w, LOG2W_KERNEL) and
-the wrappers call ``_level_scalars`` / ``_pair_scalars`` with that log2 W_h
-(both are generic in log2w); ``log2w`` still sets PAD and the buffer layout.
+the search runs with that log2 W_h (``_level_scalars`` / ``_pair_scalars``
+are generic in log2w); ``log2w`` still sets PAD and the buffer layout.
 The kernel reads its candidates at sA = rowA*128 + dA directly: the
 reference's rounding of rows to multiples of 8 is a TPU DMA constraint.
 
 Dispatch: CPU tensors take the plain versions (``_chunk_sort_torch``,
 ``_merge_level_torch``, ``_merge_pair_torch``; the merge ones compute the
 same windows from the same scalars with torch gathers and a sort per
-window); CUDA tensors launch the kernels or raise. ``CHUNK_LAUNCHES``
+window; ``_level_plan_torch`` / ``_pair_plan_torch`` are the split
+kernel's); CUDA tensors launch the kernels or raise. ``CHUNK_LAUNCHES``
 counts K8 launches, ``MERGE_LAUNCHES`` launches of the merge kernel (K9
-and K10), ``PAIR_LAUNCHES`` those of them that were pair merges (K10).
+and K10), ``PAIR_LAUNCHES`` those of them that were pair merges (K10),
+``SPLIT_LAUNCHES`` those of the split kernel (one a merge, of this module's
+and of the kv sort's).
 The ``LIBHPC_SORT_*`` tuning knobs of the reference are TPU-only and not
 ported.
 """
@@ -67,10 +73,12 @@ DEFAULT_LOG2W = 17
 
 LOG2C_KERNEL = 13        # K8: 2^13 int32 = 32 KB of shared memory a block
 LOG2W_KERNEL = 12        # K9/K10: 2^12 int32 = 16 KB a window
+PLAN_ROWS = 8            # rowA dA rowB dB kA kB desc, and take
 
 CHUNK_LAUNCHES = 0
 MERGE_LAUNCHES = 0
 PAIR_LAUNCHES = 0
+SPLIT_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -78,13 +86,28 @@ PAIR_LAUNCHES = 0
 # ---------------------------------------------------------------------------
 
 
+def _padded(x_i32, P: int | None):
+    """x's length P (default its own): the keys past its end are the sort's
+    pad, 0xFFFFFFFF, which K8 supplies itself."""
+    n = x_i32.shape[0]
+    if P is None or P == n:
+        return n
+    if P < n:
+        raise ValueError(f"chunk sort: {n} keys do not fit a length of {P}")
+    return P
+
+
 def _chunk_sort_torch(x_i32, pad_rows: int, total_rows: int, *, log2c: int,
-                      alternate: bool, invert: bool, unflip: bool):
-    """Plain version of K8: each 2^log2c chunk of x (raw u32 bits) sorted in
-    the flipped domain by torch.sort, chunk c descending iff
-    (alternate and c odd) != invert, unflipped if ``unflip``, at flat
-    offset pad_rows*128 of a fresh (total_rows, 128) buffer."""
-    P = x_i32.shape[0]
+                      alternate: bool, invert: bool, unflip: bool,
+                      P: int | None = None):
+    """Plain version of K8: each 2^log2c chunk of x (raw u32 bits; padded
+    with 0xFFFFFFFF to length P) sorted in the flipped domain by
+    torch.sort, chunk c descending iff (alternate and c odd) != invert,
+    unflipped if ``unflip``, at flat offset pad_rows*128 of a fresh
+    (total_rows, 128) buffer."""
+    P = _padded(x_i32, P)
+    if P > x_i32.shape[0]:
+        x_i32 = torch.cat([x_i32, x_i32.new_full((P - x_i32.shape[0],), -1)])
     C = 1 << log2c
     n_chunks = P // C
     s = torch.sort((x_i32 ^ FLIP).reshape(n_chunks, C), dim=1).values
@@ -100,18 +123,21 @@ def _chunk_sort_torch(x_i32, pad_rows: int, total_rows: int, *, log2c: int,
 
 
 def chunk_sort_kernel(x_i32, pad_rows: int, total_rows: int, *, log2c: int,
-                      alternate: bool, invert: bool, unflip: bool):
+                      alternate: bool, invert: bool, unflip: bool,
+                      P: int | None = None):
     """K8: the chunk sort of ``_chunk_sort_torch`` for chunks of at most
-    2^LOG2C_KERNEL elements. CUDA tensors launch the kernel or raise."""
+    2^LOG2C_KERNEL elements; the kernel reads the keys past x's end as the
+    pad. CUDA tensors launch the kernel or raise."""
     global CHUNK_LAUNCHES
     dev = kernel_device(x_i32)
     if dev.type == "cpu":
         return _chunk_sort_torch(x_i32, pad_rows, total_rows, log2c=log2c,
                                  alternate=alternate, invert=invert,
-                                 unflip=unflip)
-    P = x_i32.shape[0]
+                                 unflip=unflip, P=P)
+    n = x_i32.shape[0]
+    P = _padded(x_i32, P)
     C = 1 << log2c
-    check_tensor(x_i32, "x", dev, (torch.int32,), (P,))
+    check_tensor(x_i32, "x", dev, (torch.int32,), (n,))
     if not 1 <= log2c <= LOG2C_KERNEL or P % C:
         raise ValueError(f"chunk sort: P={P} in chunks of 2^{log2c}; the "
                          f"kernel takes 2^1..2^{LOG2C_KERNEL} dividing P")
@@ -119,9 +145,9 @@ def chunk_sort_kernel(x_i32, pad_rows: int, total_rows: int, *, log2c: int,
         raise ValueError(f"chunk sort: {P} elements at row {pad_rows} do not "
                          f"fit {total_rows} rows")
     out = torch.empty((total_rows, LANE), dtype=torch.int32, device=dev)
-    fn = kernel_fn("sort_chunk_i32", 2, 6)
+    fn = kernel_fn("sort_chunk_i32", 2, 7)
     with torch.cuda.device(dev):
-        rc = fn(x_i32.data_ptr(), out.data_ptr(), P // C, log2c,
+        rc = fn(x_i32.data_ptr(), out.data_ptr(), n, P // C, log2c,
                 pad_rows * LANE, int(alternate), int(invert), int(unflip),
                 current_stream_ptr())
     check_launch(rc, "sort_chunk_i32")
@@ -130,18 +156,20 @@ def chunk_sort_kernel(x_i32, pad_rows: int, total_rows: int, *, log2c: int,
 
 
 def _chunk_sort(x_i32, pad_rows: int, total_rows: int, *, log2c: int,
-                alternate: bool, invert: bool, unflip: bool):
+                alternate: bool, invert: bool, unflip: bool,
+                P: int | None = None):
     """Sort each chunk; write into a padded work buffer at row `pad_rows`.
 
-    Input: (P,) int32 (u32 bit pattern). Output: (total_rows, 128) int32 in
-    flipped order domain (unless unflip), chunks alternating asc/desc.
+    Input: (n,) int32 (u32 bit pattern), taken as P keys (default n) whose
+    last P - n are 0xFFFFFFFF. Output: (total_rows, 128) int32 in flipped
+    order domain (unless unflip), chunks alternating asc/desc.
 
     A chunk larger than 2^LOG2C_KERNEL is sorted as sub-chunks of that size
     (K8) and merge levels (K9) up to 2^log2c: sub-chunks and interior runs
     alternate, and the last doubling gives each chunk its direction
     ((chunk odd) != invert, as ``alternate`` asks, or ``invert`` for a lone
     chunk) and applies ``unflip``."""
-    P = x_i32.shape[0]
+    P = _padded(x_i32, P)
     sub = min(log2c, LOG2C_KERNEL)
     staged = sub < log2c
     if staged and not alternate and P > 1 << log2c:
@@ -150,7 +178,7 @@ def _chunk_sort(x_i32, pad_rows: int, total_rows: int, *, log2c: int,
     buf = chunk_sort_kernel(x_i32, pad_rows, total_rows, log2c=sub,
                             alternate=alternate or staged,
                             invert=invert and not staged,
-                            unflip=unflip and not staged)
+                            unflip=unflip and not staged, P=P)
     for log2r in range(sub, log2c):
         last = log2r == log2c - 1
         buf = _merge_level(buf, P, pad_rows * LANE, total_rows, log2r,
@@ -160,7 +188,7 @@ def _chunk_sort(x_i32, pad_rows: int, total_rows: int, *, log2c: int,
 
 
 # ---------------------------------------------------------------------------
-# phase 2: merge-path search (torch) + merge kernel (K9 / K10)
+# phase 2: merge-path split search + merge kernel (K9 / K10)
 # ---------------------------------------------------------------------------
 
 
@@ -267,6 +295,96 @@ def _pair_scalars(bufA, bufB, LA: int, LB: int, PAD: int, log2w: int,
     return _scalars_out(sA + PAD, sB + PAD, kA, kB, desc)
 
 
+def _take(scalars, PAD: int, LA: int, span: int, log2w: int):
+    """Outputs of each window that come from A: the next window's split
+    minus this one's, or LA - split at the last window of a run pair (span
+    outputs: 2R for a level, LA + LB for a pair merge). The split is read
+    back from sA (``_level_scalars``: sA = PAD + base + split ascending,
+    PAD + base + LA - split - W descending)."""
+    rowA, dA, *_, dsc = (s.to(torch.int64) for s in scalars)
+    W = 1 << log2w
+    out_pos = torch.arange(rowA.shape[0], device=rowA.device) * W
+    base = out_pos // span * span
+    at = rowA * LANE + dA - PAD - base
+    split = torch.where(dsc != 0, LA - W - at, at)
+    end = torch.cat([split[1:], split.new_full((1,), LA)])
+    end = torch.where(out_pos - base + W == span, LA, end)
+    return (end - split).to(torch.int32)
+
+
+def _level_plan_torch(buf, P: int, PAD: int, log2r: int, log2w: int,
+                      invert: bool):
+    """Plain version of the split kernel for one level: ``_level_scalars``'
+    seven arrays and ``_take``'s, as one (PLAN_ROWS, nw) int32 tensor."""
+    sc = _level_scalars(buf, P, PAD, log2r, log2w, invert)
+    R = 1 << log2r
+    return torch.stack(sc + (_take(sc, PAD, R, 2 * R, log2w),))
+
+
+def _pair_plan_torch(bufA, bufB, LA: int, LB: int, PAD: int, log2w: int,
+                     desc_out: bool):
+    """Plain version of the split kernel for a pair merge."""
+    sc = _pair_scalars(bufA, bufB, LA, LB, PAD, log2w, desc_out)
+    return torch.stack(sc + (_take(sc, PAD, LA, LA + LB, log2w),))
+
+
+def _check_plan_inputs(name: str, bufs, reach, dev) -> None:
+    """Each (buffer, flat extent) pair: an int32 (rows, 128) buffer on
+    `dev` holding the extent the search reads, below 2^31 elements."""
+    for t, n in zip(bufs, reach):
+        check_tensor(t, name, dev, (torch.int32,), (t.shape[0], LANE))
+        if n > t.numel() or t.numel() >= 1 << 31:
+            raise ValueError(f"{name}: the search reads {n} elements of a "
+                             f"buffer of {t.numel()} (< 2^31)")
+
+
+def _level_plan(buf, P: int, PAD: int, log2r: int, log2w: int,
+                invert: bool):
+    """The split kernel for one level (``_level_plan_torch`` on the CPU):
+    one launch, one thread a window; CUDA tensors launch it or raise."""
+    global SPLIT_LAUNCHES
+    dev = kernel_device(buf)
+    if dev.type == "cpu":
+        return _level_plan_torch(buf, P, PAD, log2r, log2w, invert)
+    if not 1 <= log2w <= log2r + 1 or P % (2 << log2r) or PAD < 1:
+        raise ValueError(f"split search: {P} elements in runs of 2^{log2r}, "
+                         f"windows of 2^{log2w} at {PAD}")
+    _check_plan_inputs("buf", (buf,), (PAD + P,), dev)
+    nw = P >> log2w
+    plan = torch.empty((PLAN_ROWS, nw), dtype=torch.int32, device=dev)
+    fn = kernel_fn("sort_split_level_i32", 2, 5)
+    with torch.cuda.device(dev):
+        rc = fn(buf.data_ptr(), plan.data_ptr(), nw, log2w, PAD, log2r,
+                int(invert), current_stream_ptr())
+    check_launch(rc, "sort_split_level_i32")
+    SPLIT_LAUNCHES += 1
+    return plan
+
+
+def _pair_plan(bufA, bufB, LA: int, LB: int, PAD: int, log2w: int,
+               desc_out: bool):
+    """The split kernel for a pair merge (``_pair_plan_torch`` on the
+    CPU)."""
+    global SPLIT_LAUNCHES
+    dev = kernel_device(bufA, bufB)
+    if dev.type == "cpu":
+        return _pair_plan_torch(bufA, bufB, LA, LB, PAD, log2w, desc_out)
+    if LA < 1 or LB < 1 or (LA + LB) % (1 << log2w) or PAD < 1:
+        raise ValueError(f"split search: runs of {LA} and {LB}, windows of "
+                         f"2^{log2w} at {PAD}")
+    _check_plan_inputs("buf", (bufA, bufB), (PAD + LA + 1, PAD + LB), dev)
+    nw = (LA + LB) >> log2w
+    plan = torch.empty((PLAN_ROWS, nw), dtype=torch.int32, device=dev)
+    fn = kernel_fn("sort_split_pair_i32", 3, 7)
+    with torch.cuda.device(dev):
+        rc = fn(bufA.data_ptr(), bufB.data_ptr(), plan.data_ptr(), nw, log2w,
+                PAD, LA, LB, min(LA, LB).bit_length() + 1, int(desc_out),
+                current_stream_ptr())
+    check_launch(rc, "sort_split_pair_i32")
+    SPLIT_LAUNCHES += 1
+    return plan
+
+
 def _merge_windows_torch(srcA, srcB, scalars, PAD: int, total_rows: int,
                          log2w: int, unflip: bool):
     """Plain version of the merge kernel: for each window, the candidate
@@ -300,29 +418,30 @@ def _merge_windows_torch(srcA, srcB, scalars, PAD: int, total_rows: int,
     return out.reshape(total_rows, LANE)
 
 
-def _merge_launch(srcA, srcB, scalars, PAD: int, total_rows: int,
+def _merge_launch(srcA, srcB, plan, PAD: int, total_rows: int,
                   log2w: int, unflip: bool, pair: bool):
-    """Launch the merge kernel (K9; K10 when ``pair``) on CUDA tensors."""
+    """Launch the merge kernel (K9; K10 when ``pair``) on CUDA tensors, its
+    windows placed by the split kernel's plan."""
     global MERGE_LAUNCHES, PAIR_LAUNCHES
-    dev = kernel_device(srcA, srcB, *scalars)
-    nw = scalars[0].shape[0]
+    dev = kernel_device(srcA, srcB, plan)
+    nw = plan.shape[-1]
     for name, t in (("bufA", srcA), ("bufB", srcB)):
         check_tensor(t, name, dev, (torch.int32,), (t.shape[0], LANE))
-    for name, s in zip(("rowA", "dA", "rowB", "dB", "kA", "kB", "dsc"),
-                       scalars):
-        check_tensor(s, name, dev, (torch.int32,), (nw,))
+    check_tensor(plan, "plan", dev, (torch.int32,), (PLAN_ROWS, nw))
     if not 1 <= log2w <= LOG2W_KERNEL:
         raise ValueError(f"merge window 2^{log2w}: the kernel takes "
                          f"2^1..2^{LOG2W_KERNEL}")
-    if PAD + (nw << log2w) > total_rows * LANE or total_rows * LANE >= 1 << 31:
+    if PAD < 4 or PAD + (nw << log2w) > total_rows * LANE \
+            or total_rows * LANE >= 1 << 31:
         raise ValueError(f"merge: {nw} windows at {PAD} do not fit "
-                         f"{total_rows} rows")
+                         f"{total_rows} rows (the kernel reads whole "
+                         "16-byte chunks, so PAD >= 4)")
     out = torch.empty((total_rows, LANE), dtype=torch.int32, device=dev)
-    fn = kernel_fn("sort_merge_i32", 10, 4)
+    fn = kernel_fn("sort_merge_i32", 4, 4)
     with torch.cuda.device(dev):
-        rc = fn(srcA.data_ptr(), srcB.data_ptr(),
-                *(s.data_ptr() for s in scalars), out.data_ptr(), nw, log2w,
-                PAD, int(unflip), current_stream_ptr())
+        rc = fn(srcA.data_ptr(), srcB.data_ptr(), plan.data_ptr(),
+                out.data_ptr(), nw, log2w, PAD, int(unflip),
+                current_stream_ptr())
     check_launch(rc, "sort_merge_i32")
     MERGE_LAUNCHES += 1
     PAIR_LAUNCHES += int(pair)
@@ -344,8 +463,8 @@ def _merge_level(buf, P: int, PAD: int, total_rows: int, log2r: int,
         return _merge_level_torch(buf, P, PAD, total_rows, log2r, log2w,
                                   invert, unflip)
     lw = min(log2w, LOG2W_KERNEL)
-    scalars = _level_scalars(buf, P, PAD, log2r, lw, invert)
-    return _merge_launch(buf, buf, scalars, PAD, total_rows, lw, unflip,
+    plan = _level_plan(buf, P, PAD, log2r, lw, invert)
+    return _merge_launch(buf, buf, plan, PAD, total_rows, lw, unflip,
                          pair=False)
 
 
@@ -369,8 +488,8 @@ def _merge_pair(bufA, bufB, LA: int, LB: int, PAD: int, log2w: int,
         return _merge_pair_torch(bufA, bufB, LA, LB, PAD, log2w, desc_out,
                                  unflip)
     lw = min(log2w, LOG2W_KERNEL)
-    scalars = _pair_scalars(bufA, bufB, LA, LB, PAD, lw, desc_out)
-    return _merge_launch(bufA, bufB, scalars, PAD, _pair_rows(LA, LB, PAD),
+    plan = _pair_plan(bufA, bufB, LA, LB, PAD, lw, desc_out)
+    return _merge_launch(bufA, bufB, plan, PAD, _pair_rows(LA, LB, PAD),
                          lw, unflip, pair=True)
 
 
@@ -379,11 +498,13 @@ def _merge_pair(bufA, bufB, LA: int, LB: int, PAD: int, log2w: int,
 # ---------------------------------------------------------------------------
 
 
-def _sort_segment(xi, log2c: int, log2w: int, invert: bool, unflip: bool):
-    """Sort a power-of-two-chunk segment. xi: (P,) raw-bit int32 with
-    P = C * 2^J. Returns the padded work buffer, data (flipped domain unless
-    unflip) at [PAD, PAD+P), ascending (or descending when invert)."""
-    P = xi.shape[0]
+def _sort_segment(xi, log2c: int, log2w: int, invert: bool, unflip: bool,
+                  P: int | None = None):
+    """Sort a power-of-two-chunk segment. xi: raw-bit int32 keys, taken as
+    P = C * 2^J keys (default its length) whose tail past xi is 0xFFFFFFFF.
+    Returns the padded work buffer, data (flipped domain unless unflip) at
+    [PAD, PAD+P), ascending (or descending when invert)."""
+    P = _padded(xi, P)
     C = 1 << log2c
     W0 = 1 << log2w
     J = (P // C).bit_length() - 1
@@ -396,7 +517,7 @@ def _sort_segment(xi, log2c: int, log2w: int, invert: bool, unflip: bool):
     # runs must keep the strict (asc, desc) pair alternation either way
     buf = _chunk_sort(xi, PAD // LANE, total_rows, log2c=log2c,
                       alternate=(J > 0), invert=(invert and J == 0),
-                      unflip=(unflip and J == 0))
+                      unflip=(unflip and J == 0), P=P)
     for j in range(1, J + 1):
         log2r = log2c + j - 1
         lw = min(log2w, log2r)  # window never larger than a run
@@ -451,21 +572,18 @@ def merge_sort_u32(x, log2c: int = DEFAULT_LOG2C,
     segs = _decompose(n, C)
     single = len(segs) == 1
 
-    # slice + pad each segment (raw-domain u32 max = int32 -1 -> +inf)
+    # slice each segment; the chunk sort pads the last one (raw-domain u32
+    # max = int32 -1 -> +inf) as it reads it
     bufs = []
     off = 0
     for i, s in enumerate(segs):
         take = min(s, n - off)
         seg = xi[off:off + take]
-        if take < s:
-            seg = torch.cat([seg, torch.full((s - take,), -1,
-                                             dtype=torch.int32,
-                                             device=xi.device)])
         # the last segment of a multi-segment sort is the first descending
         # merge operand; intermediate fold outputs stay descending too
         invert = (not single) and (i == len(segs) - 1)
         buf, _ = _sort_segment(seg.contiguous(), log2c, log2w, invert=invert,
-                               unflip=single)
+                               unflip=single, P=s)
         bufs.append(buf)
         off += take
 

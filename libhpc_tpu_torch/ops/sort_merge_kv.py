@@ -14,14 +14,16 @@ of a scatter.
        and two K12 levels (``_chunk_sort_kv``).
   K12  ``_merge_level_kv`` / ``_merge_pair_kv``
        (``csrc/sort_merge.cu:sort_merge_kv_i32``, the port of
-       ``_merge_kernel_kv`` as ``_run_merge_kv`` calls it): one kernel for a
-       level (one source) and a pair merge (two sources), windows of
+       ``_merge_kernel_kv`` as ``_run_merge_kv`` calls it): K9's
+       merge-path kernel with a payload beside every key, for a level (one
+       source) and a pair merge (two sources), windows of
        2^min(log2w, LOG2W_KERNEL) keys and payloads.
 
 Keys keep ``sort_merge``'s layout and flipped domain; the payload buffers
 lie beside the key buffers at the same offsets. The merge-path splits come
-from ``sort_merge._level_scalars`` / ``_pair_scalars`` on the key buffers;
-their splits are clamped into the searched range, where the reference's
+from ``sort_merge``'s split kernel (``_level_plan`` / ``_pair_plan``; on the
+CPU ``_level_scalars`` / ``_pair_scalars``) on the key buffers; their
+splits are clamped into the searched range, where the reference's
 fixed-count search can end one past the A run when ties sit at a run's
 maximum, which moves no key but repeats one payload and drops another
 (ROADMAP Queue 3).
@@ -34,10 +36,10 @@ payloads per key elsewhere.
 Payload repair (where the reference loses payloads): pad elements carry key
 0xFFFFFFFF, and a masked merge candidate is +inf, so in the reference both
 tie with real keys of the top value and can take their place (ROADMAP
-Queue 3). Here K12 lets a masked candidate lose every tie and never reads a
-masked payload, and ``merge_sort_kv_u32`` writes the payloads of the
-output's trailing run of 0xFFFFFFFF keys from the input's, so every input
-payload appears exactly once, beside its own key.
+Queue 3). Here K12 reads no candidate past a run (the plain version lets a
+masked candidate lose every tie), and ``merge_sort_kv_u32`` writes the
+payloads of the output's trailing run of 0xFFFFFFFF keys from the input's,
+so every input payload appears exactly once, beside its own key.
 
 Dispatch: CPU tensors take the plain versions; CUDA tensors launch the
 kernels or raise. A numpy input is moved to ``device`` (default
@@ -54,10 +56,12 @@ from libhpc_tpu_torch.ops._cuda_utils import (as_tensor, check_launch,
                                               current_stream_ptr,
                                               kernel_device, kernel_fn)
 from libhpc_tpu_torch.ops.sort import as_u32, u32_bits
-from libhpc_tpu_torch.ops.sort_merge import (FLIP, LANE, LOG2W_KERNEL,
-                                             POS_INF, DEFAULT_LOG2W,
-                                             _decompose, _level_scalars,
-                                             _pair_rows, _pair_scalars)
+from libhpc_tpu_torch.ops import sort_merge as sm
+from libhpc_tpu_torch.ops.sort_merge import (FLIP, LANE, PLAN_ROWS, POS_INF,
+                                             DEFAULT_LOG2W, _decompose,
+                                             _level_plan, _level_scalars,
+                                             _pair_plan, _pair_rows,
+                                             _pair_scalars)
 
 # kv chunk networks carry twice the live state of the scalar ones; the
 # reference caps them at 2^15
@@ -159,7 +163,7 @@ def _chunk_sort_kv(xk, xv, pad_rows: int, total_rows: int, *, log2c: int,
     for log2r in range(sub, log2c):
         last = log2r == log2c - 1
         bk, bv = _merge_level_kv(bk, bv, P, pad_rows * LANE, total_rows,
-                                 log2r, min(LOG2W_KERNEL, log2r),
+                                 log2r, min(sm.LOG2W_KERNEL, log2r),
                                  invert=invert and last,
                                  unflip=unflip and last)
     return bk, bv
@@ -208,33 +212,33 @@ def _merge_windows_kv_torch(srcAk, srcAv, srcBk, srcBv, scalars, PAD: int,
     return bk.reshape(total_rows, LANE), bv.reshape(total_rows, LANE)
 
 
-def _merge_launch_kv(srcAk, srcAv, srcBk, srcBv, scalars, PAD: int,
+def _merge_launch_kv(srcAk, srcAv, srcBk, srcBv, plan, PAD: int,
                      total_rows: int, log2w: int, unflip: bool, pair: bool):
-    """Launch K12 on CUDA tensors (a pair merge when ``pair``)."""
+    """Launch K12 on CUDA tensors (a pair merge when ``pair``), its windows
+    placed by the split kernel's plan."""
     global MERGE_LAUNCHES, PAIR_LAUNCHES
     srcs = (srcAk, srcAv, srcBk, srcBv)
-    dev = kernel_device(*srcs, *scalars)
-    nw = scalars[0].shape[0]
+    dev = kernel_device(*srcs, plan)
+    nw = plan.shape[-1]
     for name, t in zip(("keysA", "valsA", "keysB", "valsB"), srcs):
         check_tensor(t, name, dev, (torch.int32,), (t.shape[0], LANE))
     if srcAk.shape != srcAv.shape or srcBk.shape != srcBv.shape:
         raise ValueError("kv merge: key and payload buffers differ in shape")
-    for name, s in zip(("rowA", "dA", "rowB", "dB", "kA", "kB", "dsc"),
-                       scalars):
-        check_tensor(s, name, dev, (torch.int32,), (nw,))
-    if not 1 <= log2w <= LOG2W_KERNEL:
+    check_tensor(plan, "plan", dev, (torch.int32,), (PLAN_ROWS, nw))
+    if not 1 <= log2w <= sm.LOG2W_KERNEL:
         raise ValueError(f"kv merge window 2^{log2w}: the kernel takes "
-                         f"2^1..2^{LOG2W_KERNEL}")
-    if PAD + (nw << log2w) > total_rows * LANE or total_rows * LANE >= 1 << 31:
+                         f"2^1..2^{sm.LOG2W_KERNEL}")
+    if PAD < 4 or PAD + (nw << log2w) > total_rows * LANE \
+            or total_rows * LANE >= 1 << 31:
         raise ValueError(f"kv merge: {nw} windows at {PAD} do not fit "
-                         f"{total_rows} rows")
+                         f"{total_rows} rows (the kernel reads whole "
+                         "16-byte chunks, so PAD >= 4)")
     bk = torch.empty((total_rows, LANE), dtype=torch.int32, device=dev)
     bv = torch.empty((total_rows, LANE), dtype=torch.int32, device=dev)
-    fn = kernel_fn("sort_merge_kv_i32", 13, 4)
+    fn = kernel_fn("sort_merge_kv_i32", 7, 4)
     with torch.cuda.device(dev):
-        rc = fn(*(t.data_ptr() for t in srcs),
-                *(s.data_ptr() for s in scalars), bk.data_ptr(),
-                bv.data_ptr(), nw, log2w, PAD, int(unflip),
+        rc = fn(*(t.data_ptr() for t in srcs), plan.data_ptr(),
+                bk.data_ptr(), bv.data_ptr(), nw, log2w, PAD, int(unflip),
                 current_stream_ptr())
     check_launch(rc, "sort_merge_kv_i32")
     MERGE_LAUNCHES += 1
@@ -256,9 +260,9 @@ def _merge_level_kv(bk, bv, P: int, PAD: int, total_rows: int, log2r: int,
     if kernel_device(bk, bv).type == "cpu":
         return _merge_level_kv_torch(bk, bv, P, PAD, total_rows, log2r,
                                      log2w, invert, unflip)
-    lw = min(log2w, LOG2W_KERNEL)
-    scalars = _level_scalars(bk, P, PAD, log2r, lw, invert)
-    return _merge_launch_kv(bk, bv, bk, bv, scalars, PAD, total_rows, lw,
+    lw = min(log2w, sm.LOG2W_KERNEL)
+    plan = _level_plan(bk, P, PAD, log2r, lw, invert)
+    return _merge_launch_kv(bk, bv, bk, bv, plan, PAD, total_rows, lw,
                             unflip, pair=False)
 
 
@@ -277,9 +281,9 @@ def _merge_pair_kv(bkA, bvA, bkB, bvB, LA: int, LB: int, PAD: int,
     if kernel_device(bkA, bvA, bkB, bvB).type == "cpu":
         return _merge_pair_kv_torch(bkA, bvA, bkB, bvB, LA, LB, PAD, log2w,
                                     desc_out, unflip)
-    lw = min(log2w, LOG2W_KERNEL)
-    scalars = _pair_scalars(bkA, bkB, LA, LB, PAD, lw, desc_out)
-    return _merge_launch_kv(bkA, bvA, bkB, bvB, scalars, PAD,
+    lw = min(log2w, sm.LOG2W_KERNEL)
+    plan = _pair_plan(bkA, bkB, LA, LB, PAD, lw, desc_out)
+    return _merge_launch_kv(bkA, bvA, bkB, bvB, plan, PAD,
                             _pair_rows(LA, LB, PAD), lw, unflip, pair=True)
 
 

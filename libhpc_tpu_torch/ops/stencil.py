@@ -110,14 +110,21 @@ def blur2d(a, radius: int = 8, *, device="cuda") -> torch.Tensor:
     return blur_y(blur_x(a, radius, device=device), radius)
 
 
+def _stencil_input(u, device) -> torch.Tensor:
+    """u on `device`; bool as float32, the dtype the reference's float
+    coefficients promote it to (torch refuses to subtract bools)."""
+    u = as_tensor(u, device)
+    return u.to(torch.float32) if u.dtype == torch.bool else u
+
+
 def poisson5_apply(u, *, device="cuda") -> torch.Tensor:
     """4u - u_N - u_S - u_E - u_W, zero Dirichlet halo."""
-    return poisson5_halo(HaloArray.wrap(as_tensor(u, device), 1))
+    return poisson5_halo(HaloArray.wrap(_stencil_input(u, device), 1))
 
 
 def poisson7_apply(u, *, device="cuda") -> torch.Tensor:
     """6u - the 6 face neighbours, zero Dirichlet halo."""
-    return poisson7_halo(HaloArray.wrap(as_tensor(u, device), 1))
+    return poisson7_halo(HaloArray.wrap(_stencil_input(u, device), 1))
 
 
 # ---------------------------------------------------------------------------

@@ -401,6 +401,24 @@ def test_chunk_kernel_matches_plain(cuda_device, log2c, n_chunks, alternate,
                        _region(want, pad_rows * 128, P))
 
 
+@pytest.mark.parametrize("n", [1, 4000, 3 * 8192 + 77])
+@pytest.mark.parametrize("log2c", [10, 13])
+def test_chunk_kernel_pads_a_short_input(cuda_device, log2c, n):
+    """K8 reads the keys past a short input's end as 0xFFFFFFFF: equal to
+    the plain version on the padded keys."""
+    from libhpc_tpu_torch.ops import sort_merge as sm
+
+    P = 4 << 13
+    x = _keys(n, seed=n, dev=cuda_device)
+    padded = torch.cat([x, x.new_full((P - n,), -1)])
+    kw = dict(log2c=log2c, alternate=True, invert=False, unflip=False)
+    rows = 3 + P // 128 + 2
+    got = sm.chunk_sort_kernel(x, 3, rows, P=P, **kw)
+    torch.cuda.synchronize()
+    want = sm._chunk_sort_torch(padded, 3, rows, **kw)
+    assert torch.equal(_region(got, 384, P), _region(want, 384, P))
+
+
 @pytest.mark.parametrize("alternate,invert,unflip", [
     (True, False, False), (False, True, True)])
 def test_staged_chunk_sort_on_card(cuda_device, alternate, invert, unflip):
@@ -467,6 +485,134 @@ def test_merge_pair_kernel_matches_plain(cuda_device, LA, LB, ties,
                                 unflip)
     assert torch.equal(_region(got, PAD, LA + LB),
                        _region(want, PAD, LA + LB))
+
+
+def _split_keys(kind, n, seed, dev):
+    """Keys for the split search: random; few values (ties at every run's
+    maximum); all equal; or many 0xFFFFFFFF (the +inf fill) among few."""
+    x = _keys(n, seed, dev)
+    if kind == "ties":
+        return x % 5
+    if kind == "equal":
+        return torch.full_like(x, 0x1234)
+    if kind == "top":
+        return torch.where(x % 3 == 0, -1, x % 7)
+    return x
+
+
+SPLIT_KINDS = ["random", "ties", "equal", "top"]
+
+
+@pytest.mark.parametrize("invert", [False, True])
+@pytest.mark.parametrize("kind", SPLIT_KINDS)
+@pytest.mark.parametrize("log2r,n_pairs,log2w", [
+    (10, 3, 10), (12, 5, 12), (14, 2, 12), (13, 1, 11), (5, 4, 6),
+    (16, 2, 12)])
+def test_split_kernel_matches_plain_level(cuda_device, log2r, n_pairs,
+                                          log2w, kind, invert):
+    """The split kernel's eight arrays equal _level_plan_torch's (the
+    seven of _level_scalars and the A-counts) exactly."""
+    from libhpc_tpu_torch.ops import sort_merge as sm
+
+    P = n_pairs << (log2r + 1)
+    x = _split_keys(kind, P, log2r, cuda_device)
+    PAD = 1 << 15
+    rows = (2 * PAD + P + 2048) // 128
+    runs = sm._chunk_sort_torch(x, PAD // 128, rows, log2c=log2r,
+                                alternate=True, invert=False, unflip=False)
+    n0 = sm.SPLIT_LAUNCHES
+    got = sm._level_plan(runs, P, PAD, log2r, log2w, invert)
+    assert sm.SPLIT_LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    want = sm._level_plan_torch(runs, P, PAD, log2r, log2w, invert)
+    assert got.shape == want.shape == (8, P >> log2w)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("desc_out", [False, True])
+@pytest.mark.parametrize("kind", SPLIT_KINDS)
+@pytest.mark.parametrize("LA,LB,log2w", [(1 << 14, 1 << 12, 12),
+                                         (1 << 12, 1 << 13, 12),
+                                         (1 << 16, 1 << 16, 12),
+                                         (1 << 11, 1 << 15, 11),
+                                         (1 << 5, 1 << 3, 3)])
+def test_split_kernel_matches_plain_pair(cuda_device, LA, LB, log2w, kind,
+                                         desc_out):
+    """Ragged pair merges: A ascending, B descending, split arrays equal
+    _pair_plan_torch's exactly."""
+    from libhpc_tpu_torch.ops import sort_merge as sm
+
+    PAD = 1 << 12
+    bufs = []
+    for n, seed, inv in ((LA, 1, False), (LB, 2, True)):
+        x = _split_keys(kind, n, seed, cuda_device)
+        bufs.append(sm._chunk_sort_torch(
+            x, PAD // 128, (2 * PAD + n + 2048) // 128,
+            log2c=n.bit_length() - 1, alternate=False, invert=inv,
+            unflip=False))
+    n0 = sm.SPLIT_LAUNCHES
+    got = sm._pair_plan(*bufs, LA, LB, PAD, log2w, desc_out)
+    assert sm.SPLIT_LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, sm._pair_plan_torch(*bufs, LA, LB, PAD, log2w,
+                                                desc_out))
+    assert int(got[7].sum()) == LA
+
+
+@pytest.mark.parametrize("log2w", [1, 2, 3, 4, 5, 13])
+def test_merge_kernel_window_sizes(cuda_device, monkeypatch, log2w):
+    """The merge-path kernel at windows below one thread's 16 outputs and
+    at its largest (2^13, 64 KB of keys and payloads), keys and kv, equal
+    to the plain versions; every payload once."""
+    from libhpc_tpu_torch.ops import sort_merge as sm
+    from libhpc_tpu_torch.ops import sort_merge_kv as kv
+
+    monkeypatch.setattr(sm, "LOG2W_KERNEL", 13)
+    log2r = max(log2w, 6)
+    P = 3 << (log2r + 1)
+    x = _keys(P, seed=log2w, dev=cuda_device) % 97
+    v = torch.arange(P, dtype=torch.int32, device=cuda_device)
+    PAD = 1 << 13
+    rows = (2 * PAD + P + 2048) // 128
+    for inv, unf in ((False, False), (True, True)):
+        runs = sm._chunk_sort_torch(x, PAD // 128, rows, log2c=log2r,
+                                    alternate=True, invert=False,
+                                    unflip=False)
+        got = sm._merge_level(runs, P, PAD, rows, log2r, log2w, inv, unf)
+        want = sm._merge_level_torch(runs, P, PAD, rows, log2r, log2w, inv,
+                                     unf)
+        assert torch.equal(_region(got, PAD, P), _region(want, PAD, P))
+        bk, bv = kv._chunk_sort_kv_torch(x, v, PAD // 128, rows,
+                                         log2c=log2r, alternate=True,
+                                         invert=False, unflip=False)
+        gk, gv = kv._merge_level_kv(bk, bv, P, PAD, rows, log2r, log2w, inv,
+                                    unf)
+        wk, _ = kv._merge_level_kv_torch(bk, bv, P, PAD, rows, log2r, log2w,
+                                         inv, unf)
+        assert torch.equal(_region(gk, PAD, P), _region(wk, PAD, P))
+        assert torch.equal(torch.sort(_region(gv, PAD, P)).values, v)
+
+
+def test_split_and_merge_wrappers_raise_on_bad_input(cuda_device):
+    from libhpc_tpu_torch.ops import sort_merge as sm
+
+    x = _keys(4096, dev=cuda_device)
+    buf = sm._chunk_sort_torch(x, 16, 64, log2c=10, alternate=True,
+                               invert=False, unflip=False)
+    with pytest.raises(ValueError):   # windows wider than a run pair
+        sm._level_plan(buf, 4096, 2048, 10, 12, False)
+    with pytest.raises(ValueError):   # runs that do not tile P
+        sm._level_plan(buf, 3000, 2048, 10, 10, False)
+    with pytest.raises(TypeError):
+        sm._level_plan(buf.long(), 4096, 2048, 10, 10, False)
+    with pytest.raises(ValueError):   # the search would read past the buffer
+        sm._pair_plan(buf, buf, 8192, 4096, 2048, 10, True)
+    plan = sm._level_plan(buf, 4096, 2048, 10, 10, False)
+    with pytest.raises(ValueError):
+        sm._merge_launch(buf, buf, plan[:7].contiguous(), 2048, 64, 10,
+                         False, False)
+    with pytest.raises(ValueError):
+        sm._merge_launch(buf, buf, plan.cpu(), 2048, 64, 10, False, False)
 
 
 @pytest.mark.parametrize("n,log2c,log2w", [
@@ -1155,6 +1301,30 @@ def test_dma_gather_kernel_matches_plain(cuda_device, n_table, n_gather, R,
     got = ma.dma_gather(idx, table, R, G)
     assert ma.DMA_GATHER_LAUNCHES == n0 + 1
     assert torch.equal(got, ma.dma_gather_torch(idx, table, R))
+
+
+@pytest.mark.parametrize("stages,stage_rows", [(2, 1), (3, 32), (4, 32),
+                                               (8, 64), (2, 8)])
+@pytest.mark.parametrize("R", [1, 3, 8])
+def test_dma_gather_ring_tails_and_clamps(cuda_device, hang_guard, R, stages,
+                                          stage_rows):
+    """K21b's bulk-copy ring at several shapes: 1003 gathers (a multiple of
+    no ring's stages), gathers split over stages (stage_rows < R), and
+    indices outside the table, clamped into it."""
+    from libhpc_tpu_torch.bench import microarch as ma
+
+    n_table, n_gather = 37, 1003
+    g = torch.Generator(device=cuda_device).manual_seed(R * stages)
+    table = torch.rand((n_table * R, 128), device=cuda_device, generator=g)
+    idx = torch.randint(-50, n_table + 50, (n_gather,), device=cuda_device,
+                        generator=g, dtype=torch.int32)
+    n0 = ma.DMA_GATHER_LAUNCHES
+    got = ma.dma_gather(idx, table, R, 256, stages=stages,
+                        stage_rows=stage_rows)
+    assert ma.DMA_GATHER_LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, ma.dma_gather_torch(idx.clamp(0, n_table - 1),
+                                                table, R))
 
 
 @pytest.mark.parametrize("rows", [1, 8, 37, 2048, 100_003])

@@ -82,6 +82,34 @@ def test_dma_gather_matches_reference(rng):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("R,G,want", [
+    (8, 256, (4, 32)),    # the bench's 4 KB gathers: 4 a stage, 4 stages
+    (1, 1, (2, 1)),       # one gather in flight: the ring's two stages
+    (3, 5, (2, 15)),      # 5 gathers of 3 rows: one stage's worth
+    (1, 256, (4, 32)),    # 32 gathers a stage, one copy a lane
+    (65, 1, (3, 32)),     # a gather past a stage: 32 rows a stage
+    (32, 2, (2, 32))])
+def test_gather_plan(R, G, want):
+    """K21b's ring: whole gathers a stage where R rows fit (at most 32, one
+    copy a lane), a piece of one gather a stage where they do not; never
+    more rows in flight than G gathers hold, but two stages at least."""
+    stages, rows = microarch.gather_plan(R, G)
+    assert (stages, rows) == want
+    assert rows % R == 0 if R <= microarch.STAGE_ROWS else rows < R
+    assert rows // R <= microarch.DMA_MAX_PIECES
+    assert 2 <= stages <= microarch.DMA_MAX_STAGES
+    assert stages * rows <= max(G * R + rows, 2 * rows)
+    assert microarch.gather_plan(8, 256, stages=8, stage_rows=32) == (8, 32)
+    assert microarch.gather_plan(8, 1, stages=8, stage_rows=64) == (2, 8)
+    # 8 stages of 32 KB pass the shared memory a block may use: 7 fit
+    assert microarch.gather_plan(8, 256, stages=8, stage_rows=64) == (7, 64)
+    for bad in (dict(stages=1), dict(stages=9), dict(stage_rows=0)):
+        with pytest.raises(ValueError):
+            microarch.gather_plan(R, G, **bad)
+    with pytest.raises(ValueError):   # two stages of 150 KB do not fit
+        microarch.gather_plan(1000, G, stage_rows=300)
+
+
 @pytest.mark.parametrize("variant", ["roll", "reshape"])
 def test_cmpex_matches_reference(rng, variant):
     """Each compare-exchange pass computes its own reference's function."""
@@ -125,7 +153,8 @@ def test_bench_emits_the_reference_keys(capsys, name):
     for g, w in zip(got, want):
         assert "error" not in g, g
         assert g["bench"] == w["bench"] == name
-        extra = {"rows_in_flight_per_block"} if name == "dma_gather" else set()
+        extra = ({"stages", "stage_rows", "rows_in_flight_per_block"}
+                 if name == "dma_gather" else set())
         assert set(g) == set(w) | extra
         for k in ("b", "mode", "variant", "table_rows", "rows_per_dma",
                   "in_flight"):

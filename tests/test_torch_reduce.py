@@ -106,6 +106,21 @@ def test_segment_ops_empty_and_dropped_segments(rng, dtype):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
 
 
+def test_segment_max_min_of_bool_match_the_reference():
+    """bool data: an empty segment holds the identity (False for max, True
+    for min) and ids outside [0, num_segments) are dropped."""
+    x = np.array([1, 0, 1, 1, 1, 1, 0], bool)
+    ids = np.array([0, 2, 2, 5, -1, 7, 1], np.int32)
+    for f, expect in (("segment_max", [1, 0, 1, 0, 0, 1]),
+                      ("segment_min", [1, 0, 0, 1, 1, 1])):
+        got = getattr(red, f)(x, ids, 6, device="cpu").numpy()
+        want = np.asarray(getattr(ref, f)(jnp.asarray(x), jnp.asarray(ids),
+                                          6))
+        assert got.dtype == want.dtype == np.bool_
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, np.array(expect, bool))
+
+
 def test_kernel_wrapper_on_cpu_is_the_plain_version(rng, monkeypatch):
     monkeypatch.setattr(red, "ROW_SUM_LAUNCHES", 0)
     x = torch.from_numpy(rng.random((50, 70)).astype(np.float32))

@@ -83,6 +83,25 @@ def test_other_integer_dtypes(dtype):
         np.testing.assert_array_equal(got, want)
 
 
+def test_scans_of_bool_match_the_reference():
+    """jnp.cumsum promotes bool to int32; so do the port's scans. The
+    kernel path refuses bool, as the reference's does."""
+    for x in (np.array([True, False, True, True, False]),
+              np.ones((2, 3), bool)):
+        for f in ("exclusive_scan", "inclusive_scan"):
+            got = getattr(scan, f)(x, device="cpu").numpy()
+            want = np.asarray(getattr(ref, f)(jnp.asarray(x)))
+            assert got.dtype == want.dtype == np.int32
+            np.testing.assert_array_equal(got, want)
+    x = np.array([True, False, True, True, False])
+    assert list(scan.exclusive_scan(x, device="cpu")) == [0, 1, 1, 2, 3]
+    assert list(scan.inclusive_scan(x, device="cpu")) == [1, 1, 2, 3, 3]
+    with pytest.raises(TypeError):
+        ref.exclusive_scan_pallas(jnp.asarray(x))
+    with pytest.raises(TypeError):
+        scan.exclusive_scan_pallas(torch.from_numpy(x))
+
+
 def test_refused_dtypes_and_shapes():
     for dt in (torch.int64, torch.float64, torch.float16):
         with pytest.raises(TypeError):

@@ -152,6 +152,62 @@ def test_level_scalars(rng, log2r, log2w, invert):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+def _plan_windows(srcA, srcB, plan, log2w, unflip):
+    """What the merge-path kernel makes of a split plan: window w holds
+    take[w] elements of A and W - take[w] of B, read where the kernel reads
+    them (in the NOT-conjugated domain of a descending window, where both
+    ascend), merged; (windows, each part ascending)."""
+    rowA, dA, rowB, dB, _, _, dsc, take = plan.to(torch.int64)
+    W = 1 << log2w
+    j = torch.arange(W)
+    desc = (dsc != 0)[:, None]
+    m = -(dsc.to(torch.int32))[:, None]
+    sA, sB = (rowA * 128 + dA)[:, None], (rowB * 128 + dB)[:, None]
+    jy = j - take[:, None]
+    x_at = torch.where(desc, sA + W - 1 - j, sA + j)
+    y_at = torch.where(desc, sB + jy, sB + W - 1 - jy)
+    from_x = j < take[:, None]
+    fA, fB = srcA.reshape(-1), srcB.reshape(-1)
+    v = torch.where(from_x, fA[x_at.clamp(0, fA.numel() - 1)],
+                    fB[y_at.clamp(0, fB.numel() - 1)]) ^ m
+    big = torch.iinfo(torch.int32).max
+    parts_sorted = all(
+        torch.equal(p, torch.sort(p, dim=1).values)
+        for p in (torch.where(from_x, v, big),
+                  torch.where(from_x, -big - 1, v)))
+    out = torch.sort(v, dim=1).values ^ (m ^ sm.FLIP if unflip else m)
+    return out.reshape(-1), parts_sorted
+
+
+@pytest.mark.parametrize("invert", [False, True])
+@pytest.mark.parametrize("log2r,log2w", [(10, 10), (10, 8), (11, 11),
+                                         (11, 5), (10, 11)])
+def test_level_plan(rng, log2r, log2w, invert):
+    """The split kernel's plain version (what ``_level_plan`` runs on the
+    CPU): the reference's seven arrays, then the A-counts of each window,
+    which place every window's elements exactly as the plain merge does."""
+    P = 8 * C
+    x = _u32(rng, P) % np.uint32(1000)
+    buf, PAD, total_rows = _sorted_runs(rng, P, log2r, x)
+    bt = torch.from_numpy(buf)
+    plan = sm._level_plan(bt, P, PAD, log2r, log2w, invert)
+    assert plan.dtype == torch.int32 and plan.shape == (8, P >> log2w)
+    want = ref._level_scalars(jnp.asarray(buf), P, PAD, log2r, log2w, invert)
+    for g, w in zip(plan[:7], want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    take = plan[7].long()
+    W = 1 << log2w
+    assert int(take.min()) >= 0 and int(take.max()) <= W
+    per_pair = take.reshape(-1, (2 << log2r) // W).sum(dim=1)
+    assert torch.all(per_pair == 1 << log2r)
+    for unflip in (False, True):
+        got, parts_sorted = _plan_windows(bt, bt, plan, log2w, unflip)
+        assert parts_sorted
+        plain = sm._merge_level_torch(bt, P, PAD, total_rows, log2r, log2w,
+                                      invert, unflip)
+        np.testing.assert_array_equal(got.numpy(), _data(plain, PAD, P))
+
+
 def _segment_pair(rng, LA, LB, ties):
     """Sorted segment buffers as the reference's _sort_segment leaves them
     (test_sort_segment holds their data regions against it): A ascending
@@ -186,6 +242,27 @@ def test_pair_scalars(pairs, key, log2w, desc_out):
                            LA, LB, PAD, log2w, desc_out)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("desc_out", [False, True])
+@pytest.mark.parametrize("log2w", [10, 7])
+@pytest.mark.parametrize("key", [(4096, 1024, False), (1024, 2048, True)])
+def test_pair_plan(pairs, key, log2w, desc_out):
+    """The split kernel's plain version for a pair merge: the reference's
+    seven arrays, and A-counts that sum to LA and place every window."""
+    bufA, bufB, PAD, _, _ = pairs[key]
+    LA, LB, _ = key
+    ta, tb = torch.from_numpy(bufA), torch.from_numpy(bufB)
+    plan = sm._pair_plan(ta, tb, LA, LB, PAD, log2w, desc_out)
+    want = ref._pair_scalars(jnp.asarray(bufA), jnp.asarray(bufB), LA, LB,
+                             PAD, log2w, desc_out)
+    for g, w in zip(plan[:7], want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert int(plan[7].long().sum()) == LA and int(plan[7].min()) >= 0
+    got, parts_sorted = _plan_windows(ta, tb, plan, log2w, True)
+    assert parts_sorted
+    plain = sm._merge_pair_torch(ta, tb, LA, LB, PAD, log2w, desc_out, True)
+    np.testing.assert_array_equal(got.numpy(), _data(plain, PAD, LA + LB))
 
 
 @pytest.mark.parametrize("desc_out,unflip", [(True, False), (False, True)])
@@ -257,6 +334,30 @@ def test_chunk_sort(rng, monkeypatch, alternate, invert, unflip):
     if not alternate:
         with pytest.raises(ValueError):
             sm._chunk_sort(torch.cat([xt, xt]), PAD // 128, total_rows, **kw)
+
+
+@pytest.mark.parametrize("n", [1, C - 5, 3 * C + 77, 4 * C])
+def test_chunk_sort_pads_a_short_input(rng, monkeypatch, n):
+    """Keys past a short input's end count as 0xFFFFFFFF: the chunk sort
+    of n keys at length 4C equals the reference's of the keys padded with
+    0xFFFFFFFF, as merge_sort_u32 pads its last segment; the staged form
+    too."""
+    P = 4 * C
+    x = _u32(rng, n).view(np.int32)
+    padded = np.concatenate([x, np.full(P - n, -1, np.int32)])
+    PAD = 2048
+    total_rows = (2 * PAD + P + 2048) // 128
+    kw = dict(log2c=LOG2C, alternate=True, invert=False, unflip=False)
+    want = _data(ref._chunk_sort(jnp.asarray(padded), PAD // 128, total_rows,
+                                 **kw), PAD, P)
+    xt = torch.from_numpy(x)
+    got = sm._chunk_sort(xt, PAD // 128, total_rows, P=P, **kw)
+    np.testing.assert_array_equal(_data(got, PAD, P), want)
+    monkeypatch.setattr(sm, "LOG2C_KERNEL", 8)
+    staged = sm._chunk_sort(xt, PAD // 128, total_rows, P=P, **kw)
+    np.testing.assert_array_equal(_data(staged, PAD, P), want)
+    with pytest.raises(ValueError):
+        sm._chunk_sort(xt, PAD // 128, total_rows, P=n - 1, **kw)
 
 
 @pytest.mark.parametrize("invert,unflip", [(False, False), (False, True),

@@ -230,6 +230,25 @@ def test_shared_kernel_zero_vs_filled_halo(rng):
     np.testing.assert_allclose(y1[0], y0[0] - 1.0, rtol=1e-5)
 
 
+def test_poisson_stencils_of_bool_match_the_reference():
+    """The reference's float coefficients promote bool to float32: 4 on
+    the diagonal of eye(4) and -2 beside it; 6 at the centre of a 3^3
+    cube and -1 at its faces."""
+    a = np.eye(4, dtype=bool)
+    got = stencil.poisson5_apply(a, device="cpu").numpy()
+    want = np.asarray(ref.poisson5_apply(jnp.asarray(a)))
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    assert np.all(np.diag(got) == 4) and np.all(np.diag(got, 1) == -2)
+    u = np.zeros((3, 3, 3), bool)
+    u[1, 1, 1] = True
+    got = stencil.poisson7_apply(u, device="cpu").numpy()
+    want = np.asarray(ref.poisson7_apply(jnp.asarray(u)))
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    assert got[1, 1, 1] == 6 and got[0, 1, 1] == got[1, 2, 1] == -1
+
+
 @pytest.mark.parametrize("dtype", [np.int32, np.int8, np.uint8, np.int16])
 def test_cumsum_stencils_keep_integer_dtypes(rng, dtype):
     """jnp.cumsum keeps an integer dtype (sums wrap), so the cumsum-form
