@@ -29,7 +29,8 @@ Phases, one JSON line each:
   0 device     card, versions, kernel build seconds, the HGMMA (wgmma)
                lines in the library's SASS (fails at 0), registers and
                spills of K18's FMA kernel, of the scan kernel, of the split
-               search and merge-path kernels and of K21b
+               search and merge-path kernels, of the chunk sorts' radix
+               kernels (K8, K11) and of K21b
   1 spmv       sbell_spmv on cant/pwtk in f32 and bf16: kernels against
                their plain PyTorch versions on the card and against scipy;
                times of the near kernel and of the whole SpMV, each as
@@ -63,11 +64,15 @@ Phases, one JSON line each:
  13 sort_kernels  K8, the staged 2^16 chunk sort, the split search, K9
                and K10 each exactly against its plain version on the
                buffers of a 2^26 sort, invert and unflip cases included,
-               with device times (CUDA graph replays); for K9/K10 the
+               with device times (CUDA graph replays); K8 alone (one
+               launch replayed as a graph; by CUPTI in sort_split); for
+               K9/K10 the
                merge kernel alone and the split kernel alone (one launch
                replayed as a graph, and by CUPTI inside the whole call)
                beside the whole call; the merge kernel at windows of 2^11,
-               2^12 and 2^13
+               2^12 and 2^13; chunk_sort_sweep: K8 and K11 alone at every
+               sub-chunk size and digit width, and the staged chunk
+               sorts at each sub-chunk size
  14 radix      radix_sort_pipeline, bitonic_sort, sort_u32 and argsort_u32
                (plain torch) on 2^22 keys against torch.sort
  15 histogram  K15 on the four 8-bit digit planes of the 500M keys, exactly
@@ -83,9 +88,10 @@ Phases, one JSON line each:
                pair merges; the (key, payload) pairs equal the input's
  18 kv_kernels K11, the staged 2^15 chunk, K12 as a level and as a pair,
                each exactly against its plain version (keys and payloads)
-               on the buffers of a 2^26 sort of distinct keys; K12 alone
-               and the split search alone beside the whole call, as in
-               sort_kernels
+               on the buffers of a 2^26 sort of distinct keys; K11 alone
+               (graph replay; CUPTI in sort_split), K12 alone and the
+               split search alone beside the whole call, as in
+               sort_kernels; K11's chunk_sort_sweep
  19 scan       K14 on 500M int32 flags (digit 0 of the keys == 0) exactly
                against its plain version and int64 cumsum, on a wraparound
                case; K13 on 500M seeded f32 within 1e-4 of a float64
@@ -140,10 +146,11 @@ Phases, one JSON line each:
                before its path runs and read just after, and the launches
                made to compare a kernel with its plain version are not
                counted
- 29 sort_split one 500M sort profiled (CUPTI) in a child process
-               (chip_smoke.py --sort-split, a fresh profiler): device time
-               of K8, of K9, of the split search kernel and of the torch
-               ops left
+ 29 sort_split one 500M sort and one 500M argsort profiled (CUPTI) in a
+               child process (chip_smoke.py --sort-split, a fresh
+               profiler): device time and share of K8 / K11, of K9 / K12,
+               of the split search kernel and of the torch ops left; K8
+               and K11 alone on 2^26 keys
  30 library    torch.sparse CSR matvecs of the SpMV kernels' matrices,
                the library yardstick of K1-K7 (after every profile)
 
@@ -971,6 +978,9 @@ def expected_sort_launches(n: int, log2c: int, sm=None) -> dict:
             "split": merges}
 
 
+CHUNK_KERNEL = "chunk_sort_kernel"      # K8, K11 (csrc/sort_chunk.cu)
+
+
 def sort_path(n: int, dev, segs_want, launches, name: str):
     """merge_sort_u32 on n seeded u32 keys (the path, counters zeroed just
     before and read just after), held exactly against torch.sort; then its
@@ -1147,10 +1157,85 @@ def merge_window_sweep(x, log2p: int, windows=(11, 12, 13)) -> dict:
     return out
 
 
+# (sub-chunk sizes, digit widths) of the chunk sort sweep
+CHUNK_SWEEP = ((13, 14), (4, 5, 6))
+
+
+def chunk_sort_sweep(x, v, log2p: int) -> dict:
+    """K8 (v None) or K11 (payloads v) alone, one launch replayed as a CUDA
+    graph, on 2^log2p keys at each sub-chunk size and digit width of
+    CHUNK_SWEEP, each exactly against its plain version; and at each
+    sub-chunk size, with the module's digit width, the whole chunk sort of
+    the default chunk (K8 and K9 levels up to 2^16; K11 and K12 levels up
+    to 2^15), exactly (kv: on distinct keys, the merges being unstable):
+    the data behind the modules' LOG2C_KERNEL and RADIX_BITS."""
+    import torch
+
+    from libhpc_tpu_torch.ops import sort_merge as sm
+    from libhpc_tpu_torch.ops import sort_merge_kv as kv
+
+    mod = sm if v is None else kv
+    PAD = 1 << mod.DEFAULT_LOG2W
+    rows = (2 * PAD + (1 << log2p) + 16 * 128) // 128
+    at = dict(pad_rows=PAD // 128, total_rows=rows, alternate=True,
+              invert=False, unflip=False)
+    region = slice(PAD, PAD + (1 << log2p))
+    if v is None:
+        def kernel(log2c):
+            return (sm.chunk_sort_kernel(x, log2c=log2c, **at),)
+
+        def plain(log2c):
+            return (sm._chunk_sort_torch(x, log2c=log2c, **at),)
+
+        def staged():
+            return (sm._chunk_sort(x, log2c=sm.DEFAULT_LOG2C, **at),)
+    else:
+        def kernel(log2c):
+            return kv.chunk_sort_kv_kernel(x, v, log2c=log2c, **at)
+
+        def plain(log2c):
+            return kv._chunk_sort_kv_torch(x, v, log2c=log2c, **at)
+
+        def staged():
+            return kv._chunk_sort_kv(x, v, log2c=kv.DEFAULT_LOG2C, **at)
+
+    def data(bufs):
+        return torch.cat([b.reshape(-1)[region] for b in bufs])
+
+    sizes, widths = CHUNK_SWEEP
+    keep = (mod.LOG2C_KERNEL, sm.RADIX_BITS)
+    rec = {}
+    try:
+        staged_want = data(plain(mod.DEFAULT_LOG2C))
+        for log2c in sizes:
+            mod.LOG2C_KERNEL = log2c
+            want = data(plain(log2c))
+            for bits in widths:
+                sm.RADIX_BITS = bits
+                if not torch.equal(data(kernel(log2c)), want):
+                    raise AssertionError(
+                        f"chunk sort 2^{log2c}, {bits}-bit digits (kv: "
+                        f"{v is not None}): the kernel differs from its "
+                        "plain version")
+                rec[f"2^{log2c}/b{bits}_ms"] = graph_ms(lambda: kernel(log2c))
+            sm.RADIX_BITS = keep[1]
+            if not torch.equal(data(staged()), staged_want):
+                raise AssertionError(f"the chunk sort with 2^{log2c} "
+                                     "sub-chunks differs from its plain "
+                                     f"version (kv: {v is not None})")
+            rec[f"staged_2^{mod.DEFAULT_LOG2C}/sub2^{log2c}_ms"] = graph_ms(
+                staged)
+        del want, staged_want
+    finally:
+        mod.LOG2C_KERNEL, sm.RADIX_BITS = keep
+    return rec
+
+
 def sort_kernels_phase(keys, kernel_times, log2p: int = 26):
     """K8, K9 and K10 each against its plain version on the buffers of a
     2^log2p-key sort (default log2c/log2w), invert and unflip cases
-    included; the pair merge folds in a 2^(log2p-2) segment."""
+    included; the pair merge folds in a 2^(log2p-2) segment; K8 alone by
+    graph replay; K8's chunk_sort_sweep."""
     import torch
 
     from libhpc_tpu_torch.ops import sort_merge as sm
@@ -1247,9 +1332,12 @@ def sort_kernels_phase(keys, kernel_times, log2p: int = 26):
     del bufA, bufB
     torch.cuda.synchronize()
     sweep = merge_window_sweep(x, log2p)
+    chunk_sweep = chunk_sort_sweep(x, None, log2p)
     emit({"phase": "sort_kernels", "P": P,
           "kernel_window": 1 << sm.LOG2W_KERNEL,
-          "merge_window_sweep": sweep,
+          "kernel_sub_chunk": 1 << sm.LOG2C_KERNEL,
+          "radix_bits": sm.RADIX_BITS,
+          "merge_window_sweep": sweep, "chunk_sort_sweep": chunk_sweep,
           **{f"{k}_ms": v[0] for k, v in rec.items()},
           **{f"{k}_plain_ms": v[1] for k, v in rec.items()},
           **{f"{k}_{part}_ms": t[part] for k, t in merges.items()
@@ -1443,10 +1531,11 @@ def sort_kv_segmented_phase(dev, launches):
 
 
 def kv_kernels_phase(dev, kernel_times, log2p: int = 26):
-    """K11 (2^13 chunks and the staged 2^15 chunk), K12 as a level and as
-    a pair, each exactly against its plain version (keys and payloads) on
-    the buffers of a 2^log2p-key sort of distinct keys, invert and unflip
-    cases included; device times by CUDA-graph replay."""
+    """K11 (2^LOG2C_KERNEL chunks and the staged 2^15 chunk), K12 as a
+    level and as a pair, each exactly against its plain version (keys and
+    payloads) on the buffers of a 2^log2p-key sort of distinct keys, invert
+    and unflip cases included; device times by CUDA-graph replay; K11's
+    chunk_sort_sweep."""
     import torch
 
     from libhpc_tpu_torch.ops import sort_merge as sm
@@ -1544,9 +1633,14 @@ def kv_kernels_phase(dev, kernel_times, log2p: int = 26):
         16 * (P + LB), 0)
     LIBRARY_MS["sort_merge_kv_pair"] = time_ms(lambda: torch.sort(flipped),
                                                reps=5)
-    del flipped, keys, vals, x, v
+    del flipped, keys, vals
     torch.cuda.synchronize()
+    chunk_sweep = chunk_sort_sweep(x, v, log2p)
+    del x, v
     emit({"phase": "kv_kernels", "P": P, "distinct_keys": True,
+          "kernel_sub_chunk": 1 << kv.LOG2C_KERNEL,
+          "radix_bits": sm.RADIX_BITS,
+          "chunk_sort_sweep": chunk_sweep,
           **{f"{k}_ms": r[0] for k, r in rec.items()},
           **{f"{k}_plain_ms": r[1] for k, r in rec.items()},
           **{f"{k}_{part}_ms": t[part] for k, t in merges.items()
@@ -2313,10 +2407,10 @@ SORT_SPLIT_ARG = "--sort-split"
 
 
 def sort_split_phase() -> None:
-    """Where the 500M sort's device time goes, profiled in a child process
-    of its own (``chip_smoke.py --sort-split``): in this process, after its
-    other profiles, the profiler lost records of that sort (K8's among
-    them)."""
+    """Where the 500M sort's and argsort's device time goes, and K8 and
+    K11 alone, profiled in a child process of its own (``chip_smoke.py
+    --sort-split``): in this process, after its other profiles, the
+    profiler lost records of those sorts (K8's among them)."""
     import torch
 
     torch.cuda.synchronize()
@@ -2330,41 +2424,72 @@ def sort_split_phase() -> None:
     emit(json.loads(res.stdout.strip().splitlines()[-1]))
 
 
-def sort_split_profile() -> dict:
-    """One 500M sort profiled (CUPTI), kernels summed by name: K8, K9's 16
-    merges, their 16 split searches, and whatever torch ops are left."""
-    import torch
-
-    from libhpc_tpu_torch.ops import sort_merge as sm
-
-    ku = sort_keys(500_000_000, torch.device("cuda")).view(torch.uint32)
-    total, split = device_ms(lambda: sm.merge_sort_u32(ku), reps=1,
-                             want={"chunk_kernel": 1, MERGE_KERNEL: 16,
-                                   SPLIT_KERNEL: 16})
+def cupti_split(call, want: dict, labels: dict) -> dict:
+    """One call profiled (CUPTI): its device time and that of the kernels
+    whose names hold each key of `labels` (want: the launches of each a
+    call, to tell a lossy profile), their shares, and the torch ops
+    left."""
+    total, split = device_ms(call, reps=1, want=want)
     complete = bool(total)
     if not complete:    # keep what a lossy profile saw, marked as such
-        total, split = device_ms(lambda: sm.merge_sort_u32(ku), reps=1)
+        total, split = device_ms(call, reps=1)
     if not total:
         raise AssertionError("sort_split: the profiler saw no device work")
-    kernels = {"K8 chunk_kernel": 0.0, f"K9 {MERGE_KERNEL}": 0.0,
-               SPLIT_KERNEL: 0.0}
+    kernels = {label: 0.0 for label in labels.values()}
     torch_ops = {}
     for name, ms in split.items():
-        if "chunk_kernel" in name:
-            kernels["K8 chunk_kernel"] += ms
-        elif MERGE_KERNEL in name:
-            kernels[f"K9 {MERGE_KERNEL}"] += ms
-        elif SPLIT_KERNEL in name:
-            kernels[SPLIT_KERNEL] += ms
+        label = next((lb for k, lb in labels.items() if k in name), None)
+        if label:
+            kernels[label] += ms
         else:
             short = name.split("<")[0].split("(")[0].replace("void ", "")
             torch_ops[short] = torch_ops.get(short, 0.0) + ms
-    return {"phase": "sort_split", "n": 500_000_000, "cupti_ms": total,
-            "records_complete": complete,
+    return {"cupti_ms": total, "records_complete": complete,
             **{f"{k}_ms": v for k, v in kernels.items()},
+            **{f"{k}_share": v / total for k, v in kernels.items()},
             "torch_ops_ms": sum(torch_ops.values()),
             "torch_ops_top_ms": dict(sorted(torch_ops.items(),
                                             key=lambda kv: -kv[1])[:4])}
+
+
+def sort_split_profile() -> dict:
+    """One 500M sort and one 500M argsort profiled (CUPTI), kernels summed
+    by name (K8 or K11, the merges, their split searches, the torch ops
+    left); then K8 and K11 alone on 2^26 keys in 2^LOG2C_KERNEL chunks, as
+    phases sort_kernels and kv_kernels run them."""
+    import torch
+
+    from libhpc_tpu_torch.ops import sort_merge as sm
+    from libhpc_tpu_torch.ops import sort_merge_kv as kv
+
+    n = 500_000_000
+    ku = sort_keys(n, torch.device("cuda")).view(torch.uint32)
+    rec = {"phase": "sort_split", "n": n}
+    for name, mod, call, chunk, merge in (
+            ("sort", sm, lambda: sm.merge_sort_u32(ku), "K8", "K9"),
+            ("argsort", kv, lambda: kv.merge_argsort_u32(ku), "K11",
+             "K12")):
+        need = expected_sort_launches(n, mod.DEFAULT_LOG2C, mod)
+        rec[name] = cupti_split(
+            call, {CHUNK_KERNEL: need["chunk"], MERGE_KERNEL: need["merge"],
+                   SPLIT_KERNEL: need["split"]},
+            {CHUNK_KERNEL: f"{chunk} {CHUNK_KERNEL}",
+             MERGE_KERNEL: f"{merge} {MERGE_KERNEL}",
+             SPLIT_KERNEL: SPLIT_KERNEL})
+    P = 1 << 26
+    x = ku.view(torch.int32)[:P].contiguous()
+    v = torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
+    del ku
+    PAD = 1 << sm.DEFAULT_LOG2W
+    at = dict(pad_rows=PAD // 128, total_rows=(2 * PAD + P + 2048) // 128,
+              alternate=True, invert=False, unflip=False)
+    rec["K8_alone_2^26_cupti_ms"] = cupti_kernels(
+        lambda: sm.chunk_sort_kernel(x, log2c=sm.LOG2C_KERNEL, **at),
+        (CHUNK_KERNEL,))[CHUNK_KERNEL]
+    rec["K11_alone_2^26_cupti_ms"] = cupti_kernels(
+        lambda: kv.chunk_sort_kv_kernel(x, v, log2c=kv.LOG2C_KERNEL, **at),
+        (CHUNK_KERNEL,))[CHUNK_KERNEL]
+    return rec
 
 
 def library_phase(dev) -> None:
@@ -2636,13 +2761,17 @@ def main() -> int:
                              "K18's half-width path runs no wgmma")
     # registers and spills of the kernels redesigned last (K18's FMA
     # kernel, K13/K14's one-pass scan, the split search and merge-path
-    # kernels of K9/K10/K12, K21b)
+    # kernels of K9/K10/K12, the radix chunk sorts of K8/K11, K21b)
     ptxas = {fn: use for fn, use in _cuda_utils.ptxas_usage(
-                 "matmul.cu", "scan.cu", "sort_merge.cu",
+                 "matmul.cu", "scan.cu", "sort_merge.cu", "sort_chunk.cu",
                  "microarch.cu").items()
              if any(k in fn for k in ("fma_kernel", "scan_kernel",
                                       MERGE_KERNEL, SPLIT_KERNEL,
-                                      "dma_gather_kernel"))}
+                                      CHUNK_KERNEL, "dma_gather_kernel"))}
+    spilled = [fn for fn, use in ptxas.items()
+               if CHUNK_KERNEL in fn and use.get("spill_stores", 0)]
+    if spilled:
+        raise AssertionError(f"ptxas: the chunk sort kernels spill: {spilled}")
     dev = torch.device("cuda")
     warm_up_card()
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),

@@ -4,11 +4,14 @@ Port of ``libhpc_tpu/ops/sort_pallas.py``:
 
   phase 1  chunk sort   — ``_chunk_sort``: every 2^log2c chunk sorted, the
             chunks alternating ascending / descending. Kernel K8
-            (``csrc/sort_chunk.cu``, the port of ``_chunk_kernel``) sorts
-            chunks of up to 2^LOG2C_KERNEL elements in shared memory; a
-            larger chunk (the default 2^16 u32 is 256 KB, past the 227 KB a
-            block may hold) is sorted as 2^LOG2C_KERNEL sub-chunks followed
-            by merge levels up to the chunk size.
+            (``csrc/sort_chunk.cu:chunk_sort_kernel``, the port of
+            ``_chunk_kernel``) sorts chunks of up to 2^LOG2C_KERNEL
+            elements, one block a chunk, by an LSD radix sort in shared
+            memory (digits of RADIX_BITS, 32 keys a thread, per-thread
+            digit counters; each key read and written once in global
+            memory); a larger chunk (the default 2^16) is sorted
+            as 2^LOG2C_KERNEL sub-chunks followed by merge levels up to
+            the chunk size.
             Merges of sorted runs are determined by the data, so the buffer
             equals the reference's chunk-sort output.
   phase 2  merge levels — ``_merge_level``: runs of R become runs of 2R.
@@ -71,7 +74,10 @@ NEG_INF = -(2 ** 31)
 DEFAULT_LOG2C = 16
 DEFAULT_LOG2W = 17
 
-LOG2C_KERNEL = 13        # K8: 2^13 int32 = 32 KB of shared memory a block
+# K8: chunks of up to 2^14 keys (the kernel's limit) in 5-bit digits: the
+# fastest 2^16 chunk sort of chip_smoke.py's chunk_sort_sweep
+LOG2C_KERNEL = 14
+RADIX_BITS = 5           # K8's and K11's digit width: 4, 5 or 6
 LOG2W_KERNEL = 12        # K9/K10: 2^12 int32 = 16 KB a window
 PLAN_ROWS = 8            # rowA dA rowB dB kA kB desc, and take
 
@@ -145,11 +151,11 @@ def chunk_sort_kernel(x_i32, pad_rows: int, total_rows: int, *, log2c: int,
         raise ValueError(f"chunk sort: {P} elements at row {pad_rows} do not "
                          f"fit {total_rows} rows")
     out = torch.empty((total_rows, LANE), dtype=torch.int32, device=dev)
-    fn = kernel_fn("sort_chunk_i32", 2, 7)
+    fn = kernel_fn("sort_chunk_i32", 2, 8)
     with torch.cuda.device(dev):
         rc = fn(x_i32.data_ptr(), out.data_ptr(), n, P // C, log2c,
                 pad_rows * LANE, int(alternate), int(invert), int(unflip),
-                current_stream_ptr())
+                RADIX_BITS, current_stream_ptr())
     check_launch(rc, "sort_chunk_i32")
     CHUNK_LAUNCHES += 1
     return out

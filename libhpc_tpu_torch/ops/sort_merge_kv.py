@@ -1,17 +1,16 @@
 """Key-value merge-path sort (argsort / sort-by-key) on the card.
 
 Port of ``libhpc_tpu/ops/sort_pallas_kv.py``: the merge-path sort of
-``ops/sort_merge.py`` with a 32-bit payload carried through every
-compare-exchange (the comparator decides on keys; key and payload move
-together). It is the counterpart of libHPC's rank-stable (key, payload)
-scatter (cuda_radix_scatter.cuh): payloads ride the merge network instead
-of a scatter.
+``ops/sort_merge.py`` with a 32-bit payload moving with every key.
 
   K11  ``chunk_sort_kv_kernel`` (``csrc/sort_chunk.cu:sort_chunk_kv_i32``,
        the port of ``_chunk_kernel_kv``): chunks of up to 2^LOG2C_KERNEL
-       keys with their payloads sorted in shared memory. The default chunk
-       of 2^15 (256 KB of keys and payloads) is sorted as 2^13 sub-chunks
-       and two K12 levels (``_chunk_sort_kv``).
+       keys with their payloads, sorted by K8's block radix sort with the
+       payloads scattered beside the keys (a rank-stable (key, payload)
+       scatter, as libHPC's cuda_radix_scatter.cuh, inside a block). It reads
+       the keys past a short segment as the pad (key 0xFFFFFFFF, payload
+       0). The default chunk of 2^15 is sorted as 2^LOG2C_KERNEL
+       sub-chunks and K12 levels (``_chunk_sort_kv``).
   K12  ``_merge_level_kv`` / ``_merge_pair_kv``
        (``csrc/sort_merge.cu:sort_merge_kv_i32``, the port of
        ``_merge_kernel_kv`` as ``_run_merge_kv`` calls it): K9's
@@ -29,9 +28,10 @@ maximum, which moves no key but repeats one payload and drops another
 (ROADMAP Queue 3).
 
 NOT stable, as the reference is not: equal keys keep an arbitrary payload
-order. The plain versions (``*_torch``) sort stably, so kernel and plain
-version agree exactly where the keys are distinct, and as a multiset of
-payloads per key elsewhere.
+order. The plain versions (``*_torch``) sort stably. K11 is stable within
+a chunk (a descending chunk is the mirror image of the ascending sort), so
+it equals its plain version exactly; K12 agrees exactly where the keys
+are distinct, and as a multiset of payloads per key elsewhere.
 
 Payload repair (where the reference loses payloads): pad elements carry key
 0xFFFFFFFF, and a masked merge candidate is +inf, so in the reference both
@@ -60,14 +60,17 @@ from libhpc_tpu_torch.ops import sort_merge as sm
 from libhpc_tpu_torch.ops.sort_merge import (FLIP, LANE, PLAN_ROWS, POS_INF,
                                              DEFAULT_LOG2W, _decompose,
                                              _level_plan, _level_scalars,
-                                             _pair_plan, _pair_rows,
+                                             _padded, _pair_plan, _pair_rows,
                                              _pair_scalars)
 
-# kv chunk networks carry twice the live state of the scalar ones; the
-# reference caps them at 2^15
+# the reference's kv chunk networks carry twice the live state of its
+# scalar ones; it caps them at 2^15
 DEFAULT_LOG2C = 15
 
-LOG2C_KERNEL = 13   # K11: 2^13 keys + payloads = 64 KB of shared memory
+# K11: chunks of up to 2^14 keys and payloads (the kernel's limit), in
+# sort_merge.RADIX_BITS digits: the fastest 2^15 chunk sort of
+# chip_smoke.py's chunk_sort_sweep
+LOG2C_KERNEL = 14
 
 CHUNK_LAUNCHES = 0
 MERGE_LAUNCHES = 0
@@ -91,11 +94,15 @@ def _buffers(P: int, pad_rows: int, total_rows: int, k, v, dev):
 
 def _chunk_sort_kv_torch(xk, xv, pad_rows: int, total_rows: int, *,
                          log2c: int, alternate: bool, invert: bool,
-                         unflip: bool):
-    """Plain version of K11: each 2^log2c chunk of (xk raw u32 bits, xv)
-    sorted stably by key in the flipped domain, chunk c descending iff
-    (alternate and c odd) != invert, keys unflipped if ``unflip``."""
-    P = xk.shape[0]
+                         unflip: bool, P: int | None = None):
+    """Plain version of K11: each 2^log2c chunk of (xk raw u32 bits, xv;
+    padded to length P with key 0xFFFFFFFF, payload 0) sorted stably by
+    key in the flipped domain, chunk c descending iff (alternate and c
+    odd) != invert, keys unflipped if ``unflip``."""
+    P = _padded(xk, P)
+    if P > xk.shape[0]:
+        xk = torch.cat([xk, xk.new_full((P - xk.shape[0],), -1)])
+        xv = torch.cat([xv, xv.new_zeros((P - xv.shape[0],))])
     C = 1 << log2c
     n_chunks = P // C
     k, order = torch.sort((xk ^ FLIP).reshape(n_chunks, C), dim=1,
@@ -112,19 +119,21 @@ def _chunk_sort_kv_torch(xk, xv, pad_rows: int, total_rows: int, *,
 
 def chunk_sort_kv_kernel(xk, xv, pad_rows: int, total_rows: int, *,
                          log2c: int, alternate: bool, invert: bool,
-                         unflip: bool):
+                         unflip: bool, P: int | None = None):
     """K11: the chunk sort of ``_chunk_sort_kv_torch`` for chunks of at
-    most 2^LOG2C_KERNEL keys. CUDA tensors launch the kernel or raise."""
+    most 2^LOG2C_KERNEL keys; the kernel reads the keys past xk's end as
+    the pad. CUDA tensors launch the kernel or raise."""
     global CHUNK_LAUNCHES
     dev = kernel_device(xk, xv)
     if dev.type == "cpu":
         return _chunk_sort_kv_torch(xk, xv, pad_rows, total_rows,
                                     log2c=log2c, alternate=alternate,
-                                    invert=invert, unflip=unflip)
-    P = xk.shape[0]
+                                    invert=invert, unflip=unflip, P=P)
+    n = xk.shape[0]
+    P = _padded(xk, P)
     C = 1 << log2c
-    check_tensor(xk, "keys", dev, (torch.int32,), (P,))
-    check_tensor(xv, "vals", dev, (torch.int32,), (P,))
+    check_tensor(xk, "keys", dev, (torch.int32,), (n,))
+    check_tensor(xv, "vals", dev, (torch.int32,), (n,))
     if not 1 <= log2c <= LOG2C_KERNEL or P % C:
         raise ValueError(f"kv chunk sort: P={P} in chunks of 2^{log2c}; the "
                          f"kernel takes 2^1..2^{LOG2C_KERNEL} dividing P")
@@ -133,24 +142,26 @@ def chunk_sort_kv_kernel(xk, xv, pad_rows: int, total_rows: int, *,
                          f"not fit {total_rows} rows")
     bk = torch.empty((total_rows, LANE), dtype=torch.int32, device=dev)
     bv = torch.empty((total_rows, LANE), dtype=torch.int32, device=dev)
-    fn = kernel_fn("sort_chunk_kv_i32", 4, 6)
+    fn = kernel_fn("sort_chunk_kv_i32", 4, 8)
     with torch.cuda.device(dev):
         rc = fn(xk.data_ptr(), xv.data_ptr(), bk.data_ptr(), bv.data_ptr(),
-                P // C, log2c, pad_rows * LANE, int(alternate), int(invert),
-                int(unflip), current_stream_ptr())
+                n, P // C, log2c, pad_rows * LANE, int(alternate),
+                int(invert), int(unflip), sm.RADIX_BITS, current_stream_ptr())
     check_launch(rc, "sort_chunk_kv_i32")
     CHUNK_LAUNCHES += 1
     return bk, bv
 
 
 def _chunk_sort_kv(xk, xv, pad_rows: int, total_rows: int, *, log2c: int,
-                   alternate: bool, invert: bool, unflip: bool):
-    """Sort each chunk of (keys, payloads) into padded work buffers at row
-    ``pad_rows``, chunks alternating asc/desc (keys flipped unless
-    unflip). A chunk larger than 2^LOG2C_KERNEL is sorted as sub-chunks
-    (K11) and merge levels (K12) up to 2^log2c, as
+                   alternate: bool, invert: bool, unflip: bool,
+                   P: int | None = None):
+    """Sort each chunk of (keys, payloads), taken as P of each (default
+    their length) whose last P - n are key 0xFFFFFFFF, payload 0, into
+    padded work buffers at row ``pad_rows``, chunks alternating asc/desc
+    (keys flipped unless unflip). A chunk larger than 2^LOG2C_KERNEL is
+    sorted as sub-chunks (K11) and merge levels (K12) up to 2^log2c, as
     ``sort_merge._chunk_sort`` does."""
-    P = xk.shape[0]
+    P = _padded(xk, P)
     sub = min(log2c, LOG2C_KERNEL)
     staged = sub < log2c
     if staged and not alternate and P > 1 << log2c:
@@ -159,7 +170,7 @@ def _chunk_sort_kv(xk, xv, pad_rows: int, total_rows: int, *, log2c: int,
     bk, bv = chunk_sort_kv_kernel(xk, xv, pad_rows, total_rows, log2c=sub,
                                   alternate=alternate or staged,
                                   invert=invert and not staged,
-                                  unflip=unflip and not staged)
+                                  unflip=unflip and not staged, P=P)
     for log2r in range(sub, log2c):
         last = log2r == log2c - 1
         bk, bv = _merge_level_kv(bk, bv, P, pad_rows * LANE, total_rows,
@@ -293,11 +304,12 @@ def _merge_pair_kv(bkA, bvA, bkB, bvB, LA: int, LB: int, PAD: int,
 
 
 def _sort_segment_kv(xk, xv, log2c: int, log2w: int, invert: bool,
-                     unflip: bool):
+                     unflip: bool, P: int | None = None):
     """Sort one power-of-two segment of (raw-bit int32 keys, int32
-    payloads). Returns the padded key and payload buffers, data at
-    [PAD, PAD+P) with PAD = max(2^log2w, 2^log2c)."""
-    P = xk.shape[0]
+    payloads), taken as P of each (default their length) whose tail is
+    key 0xFFFFFFFF, payload 0. Returns the padded key and payload buffers,
+    data at [PAD, PAD+P) with PAD = max(2^log2w, 2^log2c)."""
+    P = _padded(xk, P)
     C = 1 << log2c
     J = (P // C).bit_length() - 1
     PAD = max(1 << log2w, C)
@@ -305,7 +317,7 @@ def _sort_segment_kv(xk, xv, log2c: int, log2w: int, invert: bool,
 
     bk, bv = _chunk_sort_kv(xk, xv, PAD // LANE, total_rows, log2c=log2c,
                             alternate=(J > 0), invert=(invert and J == 0),
-                            unflip=(unflip and J == 0))
+                            unflip=(unflip and J == 0), P=P)
     for j in range(1, J + 1):
         log2r = log2c + j - 1
         bk, bv = _merge_level_kv(bk, bv, P, PAD, total_rows, log2r,
@@ -337,19 +349,16 @@ def merge_sort_kv_u32(keys, vals, log2c: int = DEFAULT_LOG2C,
     single = len(segs) == 1
     PAD = max(1 << log2w, C)
 
+    # the chunk sort pads the last segment (key 0xFFFFFFFF, payload 0) as
+    # it reads it
     bufs = []
     off = 0
     for i, s in enumerate(segs):
         take = min(s, n - off)
-        sk, sv = xk[off:off + take], xv[off:off + take]
-        if take < s:
-            sk = torch.cat([sk, torch.full((s - take,), -1, dtype=torch.int32,
-                                           device=xk.device)])
-            sv = torch.cat([sv, torch.zeros((s - take,), dtype=torch.int32,
-                                            device=xk.device)])
         invert = (not single) and (i == len(segs) - 1)
-        bufs.append(_sort_segment_kv(sk.contiguous(), sv.contiguous(), log2c,
-                                     log2w, invert=invert, unflip=single))
+        bufs.append(_sort_segment_kv(
+            xk[off:off + take].contiguous(), xv[off:off + take].contiguous(),
+            log2c, log2w, invert=invert, unflip=single, P=s))
         off += take
 
     if single:
@@ -373,7 +382,7 @@ def merge_sort_kv_u32(keys, vals, log2c: int = DEFAULT_LOG2C,
 
 def _top_payloads(xk, xv, ok, ov):
     """Pads (key 0xFFFFFFFF, payload 0) tie with real keys of that value in
-    the unstable network, so some may end inside [0, n): give the output's
+    the unstable merges, so some may end inside [0, n): give the output's
     trailing run of 0xFFFFFFFF keys the input's payloads of those keys, in
     input order (any order of equal keys is valid). Elementwise torch ops
     and one scatter, with no host synchronization, so a CUDA graph can

@@ -77,3 +77,41 @@ def cuda_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+# the chunk sorts' key sets (K8, K11): ties, the extremes of the u32 and
+# int32 orders, runs, and keys that differ in one digit of each pass
+CHUNK_KEY_KINDS = ("all_equal", "zero_and_max", "sign_neighbours",
+                   "alphabet3", "sorted", "reversed", "one_digit", "random")
+
+
+def chunk_keys(kind, n, bits=8, seed=0):
+    """n uint32 keys of `kind` (CHUNK_KEY_KINDS), from a seed. one_digit:
+    a base key whose digit of pass k (k = index mod the pass count of
+    `bits`-bit digits) is replaced by a random one."""
+    rng = np.random.default_rng(seed)
+    u32 = lambda m: rng.integers(0, 2**32, size=m, dtype=np.uint32)  # noqa
+    if kind == "all_equal":
+        return np.full(n, 0xDEADBEEF, np.uint32)
+    if kind == "zero_and_max":
+        return rng.choice(np.array([0, 0xFFFFFFFF], np.uint32), n)
+    if kind == "sign_neighbours":
+        return rng.choice(np.array([0x7FFFFFFE, 0x7FFFFFFF, 0x80000000,
+                                    0x80000001], np.uint32), n)
+    if kind == "alphabet3":
+        return rng.choice(u32(3), n)
+    if kind == "sorted":
+        return np.sort(u32(n))
+    if kind == "reversed":
+        return np.sort(u32(n))[::-1].copy()
+    if kind == "one_digit":
+        passes = -(-32 // bits)
+        shift = (np.arange(n, dtype=np.uint64) % passes) * bits
+        mask = np.uint64((1 << bits) - 1)
+        base = np.uint64(u32(1)[0])
+        digit = rng.integers(0, 1 << bits, size=n).astype(np.uint64)
+        key = (base & ~(mask << shift)) | (digit << shift)
+        return (key & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    if kind == "random":
+        return u32(n)
+    raise ValueError(kind)

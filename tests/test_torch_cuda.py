@@ -24,6 +24,10 @@ from libhpc_tpu_torch.ops import (_cuda_utils, far_sbell, sellp, solver,
 from libhpc_tpu_torch.sparse import DIA, auto
 from libhpc_tpu_torch.sparse.sbell import B, W_PANES, SBELL, FarBlocks, FarPane
 
+from libhpc_tpu_torch.ops import sort_merge as sm
+from libhpc_tpu_torch.ops import sort_merge_kv as kv
+
+from _torch_port import CHUNK_KEY_KINDS, chunk_keys
 from _torch_port import cuda_device  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.cuda
@@ -422,19 +426,105 @@ def test_chunk_kernel_pads_a_short_input(cuda_device, log2c, n):
 @pytest.mark.parametrize("alternate,invert,unflip", [
     (True, False, False), (False, True, True)])
 def test_staged_chunk_sort_on_card(cuda_device, alternate, invert, unflip):
-    """Chunks of 2^16 (the reference's default): 2^13 sub-chunks by K8,
-    then three merge levels by K9."""
-    from libhpc_tpu_torch.ops import sort_merge as sm
-
+    """Chunks of 2^16 (the reference's default): 2^LOG2C_KERNEL
+    sub-chunks by K8, then 16 - LOG2C_KERNEL merge levels by K9."""
     P = (3 if alternate else 1) << 16
     x = _keys(P, seed=7, dev=cuda_device)
     rows = (2 * (1 << 17) + P + 2048) // 128
     kw = dict(log2c=16, alternate=alternate, invert=invert, unflip=unflip)
     c0, m0 = sm.CHUNK_LAUNCHES, sm.MERGE_LAUNCHES
     got = sm._chunk_sort(x, 1024, rows, **kw)
-    assert (sm.CHUNK_LAUNCHES, sm.MERGE_LAUNCHES) == (c0 + 1, m0 + 3)
+    assert (sm.CHUNK_LAUNCHES, sm.MERGE_LAUNCHES) == (
+        c0 + 1, m0 + 16 - sm.LOG2C_KERNEL)
     want = sm._chunk_sort_torch(x, 1024, rows, **kw)
     assert torch.equal(_region(got, 1 << 17, P), _region(want, 1 << 17, P))
+
+
+DIRECTIONS = [(True, False, False), (True, True, True), (False, True, False),
+              (False, False, True)]
+
+
+def _chunk_case(kind, log2c, dev, seed=0):
+    """Three chunks of `kind` keys (the last one short: its tail is the
+    pad) and distinct payloads, on the card."""
+    P = 3 << log2c
+    n = P - max(1, (1 << log2c) // 3)
+    keys = chunk_keys(kind, n, sm.RADIX_BITS, seed=seed + log2c)
+    x = torch.from_numpy(keys.view(np.int32)).to(dev)
+    v = torch.arange(n, dtype=torch.int32, device=dev) * 3 - 5
+    return x, v, P
+
+
+@pytest.mark.parametrize("log2c", range(1, sm.LOG2C_KERNEL + 1))
+@pytest.mark.parametrize("kind", CHUNK_KEY_KINDS)
+def test_chunk_kernel_key_kinds(cuda_device, kind, log2c):
+    """K8 exactly as its plain version on ties, extremes, runs and keys
+    that differ in one digit of each pass, at every chunk size it takes,
+    every direction case, the last chunk padded."""
+    x, _, P = _chunk_case(kind, log2c, cuda_device)
+    rows = 2 + -(-P // 128) + 2
+    for alternate, invert, unflip in DIRECTIONS:
+        kw = dict(log2c=log2c, alternate=alternate, invert=invert,
+                  unflip=unflip, P=P)
+        got = sm.chunk_sort_kernel(x, 2, rows, **kw)
+        want = sm._chunk_sort_torch(x, 2, rows, **kw)
+        assert torch.equal(_region(got, 256, P), _region(want, 256, P))
+
+
+@pytest.mark.parametrize("log2c", range(1, kv.LOG2C_KERNEL + 1))
+@pytest.mark.parametrize("kind", CHUNK_KEY_KINDS)
+def test_chunk_kv_kernel_key_kinds(cuda_device, kind, log2c):
+    """K11 as K8 above, payloads exactly too: the block radix sort is
+    stable and a descending chunk is the mirror image of the ascending
+    one, as the plain version's stable sort and flip."""
+    x, v, P = _chunk_case(kind, log2c, cuda_device, seed=1)
+    rows = 2 + -(-P // 128) + 2
+    for alternate, invert, unflip in DIRECTIONS:
+        kw = dict(log2c=log2c, alternate=alternate, invert=invert,
+                  unflip=unflip, P=P)
+        gk, gv = kv.chunk_sort_kv_kernel(x, v, 2, rows, **kw)
+        wk, wv = kv._chunk_sort_kv_torch(x, v, 2, rows, **kw)
+        assert torch.equal(_region(gk, 256, P), _region(wk, 256, P))
+        assert torch.equal(_region(gv, 256, P), _region(wv, 256, P))
+
+
+def test_chunk_kernel_raises_without_an_instance(cuda_device, monkeypatch):
+    """A digit width with no instance: the C entry points refuse it and
+    the wrappers raise, for keys and for keys with payloads."""
+    x, v, P = _chunk_case("random", 8, cuda_device)
+    kw = dict(log2c=8, alternate=True, invert=False, unflip=False, P=P)
+    rows = 2 + -(-P // 128) + 2
+    monkeypatch.setattr(sm, "RADIX_BITS", 7)
+    with pytest.raises(RuntimeError, match="sort_chunk_i32"):
+        sm.chunk_sort_kernel(x, 2, rows, **kw)
+    with pytest.raises(RuntimeError, match="sort_chunk_kv_i32"):
+        kv.chunk_sort_kv_kernel(x, v, 2, rows, **kw)
+
+
+@pytest.mark.parametrize("kv_sort", [False, True])
+@pytest.mark.parametrize("bits", [4, 5, 6])
+def test_chunk_kernel_instances(cuda_device, monkeypatch, bits, kv_sort):
+    """Every digit width of the kernel (what chip_smoke.py's
+    chunk_sort_sweep times) exactly as the plain version, up to the
+    largest chunk it takes (2^14)."""
+    mod = kv if kv_sort else sm
+    monkeypatch.setattr(sm, "RADIX_BITS", bits)
+    monkeypatch.setattr(mod, "LOG2C_KERNEL", 14)
+    for log2c in (4, 11, 13, 14):
+        x, v, P = _chunk_case("random", log2c, cuda_device, seed=bits)
+        x[:5] = -1
+        rows = 2 + -(-P // 128) + 2
+        for alternate, invert, unflip in DIRECTIONS[:2]:
+            kw = dict(log2c=log2c, alternate=alternate, invert=invert,
+                      unflip=unflip, P=P)
+            if kv_sort:
+                got = kv.chunk_sort_kv_kernel(x, v, 2, rows, **kw)
+                want = kv._chunk_sort_kv_torch(x, v, 2, rows, **kw)
+            else:
+                got = (sm.chunk_sort_kernel(x, 2, rows, **kw),)
+                want = (sm._chunk_sort_torch(x, 2, rows, **kw),)
+            for g, w in zip(got, want):
+                assert torch.equal(_region(g, 256, P), _region(w, 256, P))
 
 
 @pytest.mark.parametrize("invert,unflip", [(False, False), (True, True)])
@@ -751,6 +841,26 @@ def test_chunk_kv_kernel_ties(cuda_device):
     wk, wv = kv._chunk_sort_kv_torch(x, v, 0, P // 128, **kw)
     assert torch.equal(gk, wk)
     assert torch.equal(_pairs(gk, gv), _pairs(wk, wv))
+
+
+@pytest.mark.parametrize("n", [1, 4000, 3 * 8192 + 77])
+@pytest.mark.parametrize("log2c", [10, 13])
+def test_chunk_kv_kernel_pads_a_short_input(cuda_device, log2c, n):
+    """K11 reads the keys past a short input's end as 0xFFFFFFFF with
+    payload 0: equal to the plain version on the padded keys and
+    payloads."""
+    P = 4 << 13
+    x = _keys(n, seed=n, dev=cuda_device)
+    v = torch.arange(1, n + 1, dtype=torch.int32, device=cuda_device)
+    kw = dict(log2c=log2c, alternate=True, invert=False, unflip=False)
+    rows = 3 + P // 128 + 2
+    gk, gv = kv.chunk_sort_kv_kernel(x, v, 3, rows, P=P, **kw)
+    torch.cuda.synchronize()
+    wk, wv = kv._chunk_sort_kv_torch(torch.cat([x, x.new_full((P - n,), -1)]),
+                                     torch.cat([v, v.new_zeros(P - n)]), 3,
+                                     rows, **kw)
+    assert torch.equal(_region(gk, 384, P), _region(wk, 384, P))
+    assert torch.equal(_region(gv, 384, P), _region(wv, 384, P))
 
 
 @pytest.mark.parametrize("invert,unflip", [(False, False), (True, True)])

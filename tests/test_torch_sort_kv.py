@@ -232,6 +232,35 @@ def test_chunk_sort_kv(rng, monkeypatch, alternate, invert, unflip):
         np.testing.assert_array_equal(_data(sv, PAD, P), wv)
 
 
+@pytest.mark.parametrize("n", [C - 5, 3 * C + 77])
+def test_chunk_sort_kv_pads_a_short_input(rng, monkeypatch, n):
+    """Keys past a short input's end count as 0xFFFFFFFF with payload 0:
+    the kv chunk sort of n distinct keys at length 4C equals the
+    reference's of the keys and payloads padded so, as merge_sort_kv_u32
+    pads its last segment; the staged form too."""
+    P = 4 * C
+    x = _distinct(rng, n).view(np.int32)
+    v = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    PAD = 2048
+    rows = (2 * PAD + P + 2048) // 128
+    kw = dict(log2c=LOG2C, alternate=True, invert=False, unflip=False)
+    wk, wv = ref._chunk_sort_kv(
+        jnp.asarray(np.concatenate([x, np.full(P - n, -1, np.int32)])),
+        jnp.asarray(np.concatenate([v, np.zeros(P - n, np.int32)])),
+        PAD // 128, rows, **kw)
+    wk, wv = _data(wk, PAD, P), _data(wv, PAD, P)
+    xt, vt = torch.from_numpy(x), torch.from_numpy(v)
+    gk, gv = kv._chunk_sort_kv(xt, vt, PAD // 128, rows, P=P, **kw)
+    np.testing.assert_array_equal(_data(gk, PAD, P), wk)
+    np.testing.assert_array_equal(_data(gv, PAD, P), wv)
+    monkeypatch.setattr(kv, "LOG2C_KERNEL", 8)
+    sk, sv = kv._chunk_sort_kv(xt, vt, PAD // 128, rows, P=P, **kw)
+    np.testing.assert_array_equal(_data(sk, PAD, P), wk)
+    np.testing.assert_array_equal(_data(sv, PAD, P), wv)
+    with pytest.raises(ValueError):
+        kv._chunk_sort_kv(xt, vt, PAD // 128, rows, P=n - 1, **kw)
+
+
 def _runs(x, v, log2r, PAD, rows):
     """Work buffers of alternating sorted runs of distinct keys: the plain
     chunk sort's, which equal the reference's (test_chunk_sort_kv)."""
