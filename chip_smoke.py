@@ -30,14 +30,18 @@ Phases, one JSON line each:
                lines in the library's SASS (fails at 0), registers and
                spills of K18's FMA kernel, of the scan kernel, of the split
                search and merge-path kernels, of the chunk sorts' radix
-               kernels (K8, K11) and of K21b
-  1 spmv       sbell_spmv on cant/pwtk in f32 and bf16: kernels against
-               their plain PyTorch versions on the card and against scipy;
-               times of the near kernel and of the whole SpMV, each as
-               CUDA events around 20 back-to-back calls and as device time
-               from torch.profiler
+               kernels (K8, K11), of K21b and of the SpMV kernel (K1-K3)
+  1 spmv       sbell_spmv on cant/pwtk in f32 and bf16 (one fused
+               launch of csrc/sbell_spmv.cu a matvec): the fused SpMV, K1
+               (near only) and K3 (far only) each against its plain
+               PyTorch version on the card, the SpMV against scipy; times
+               of each as CUDA events around 20 back-to-back calls, as
+               graph replay, as device time from torch.profiler (whose
+               split of the fused SpMV must hold one kernel and no memset)
+               and with the L2 flushed (cold: CUPTI, and graph replay
+               less the flushes)
   2 pane_chain two matvecs in pane layout equal A @ (A @ x)
-  3 far        the far kernel alone against its plain version, with times
+  3 far        K3 alone against its plain version, with times
   4 cg         CG to tol 1e-5 on an SPD system built from cant_like, 32
                iterations at tol 0 on it, and 32 fixed iterations on
                cant_like (the cg_sbell_cant_32it workload)
@@ -140,7 +144,9 @@ Phases, one JSON line each:
                ring (stages, rows a stage, rows in flight) and a sweep of
                its stages and stage rows, each exactly
  28 launches   the kernel launch counts of each path, which must cover
-               every call it made (the sort, kv sort, scan, histogram,
+               every call it made (the CG path: exactly one fused SpMV
+               launch a matvec, no near-only or far-only launch; the
+               sort, kv sort, scan, histogram,
                dense-layer and micro-architecture paths: exactly the
                launches their sizes call for); each count is zeroed just
                before its path runs and read just after, and the launches
@@ -328,6 +334,26 @@ def cold_device_ms(fn, reps: int = 10):
     return t or None
 
 
+def cold_graph_ms(fn, n: int = 10, reps: int = 10) -> float:
+    """Device time per call of fn with the L2 flushed before each call, by
+    graph replay: n (flush, call) pairs less n flushes, each captured back
+    to back in one CUDA graph; a flush is a 64 MB device-to-device copy
+    (128 MB through the 50 MB L2). For where a profile is lossy."""
+    import torch
+
+    src = torch.empty(16 << 20, device="cuda")
+    dst = torch.empty_like(src)
+
+    def flush():
+        dst.copy_(src)
+
+    def both():
+        flush()
+        fn()
+
+    return graph_each_ms(both, n, reps) - graph_each_ms(flush, n, reps)
+
+
 def wall_ms(fn, reps: int = 3) -> float:
     """Median host-clock time of fn ending in a device synchronize (the
     solvers sync on the host every iteration, so events would not see it)."""
@@ -403,6 +429,37 @@ def quantized(A):
     return Aq
 
 
+def graph_each_ms(fn, n: int = 20, reps: int = 10) -> float:
+    """Device time per call of fn: n calls captured back to back in one
+    CUDA graph, replayed `reps` times (graph_ms over n). For launches of a
+    few microseconds, where events around eager calls time the host, and
+    where a profile would add to the profiles of one process."""
+    def many():
+        for _ in range(n):
+            fn()
+
+    return graph_ms(many, reps) / n
+
+
+def sbell_work(sbd, x3, out, near: bool, far: bool):
+    """(bytes, operations) an SBELL SpMV mode must move and do on these
+    inputs: the real tiles' values, meta and pane, tile_ptr; the far set's
+    real entries (64 values, pane, lane and output lane each); x3 and the
+    output once; two operations a stored value."""
+    nb = nbytes(x3, out)
+    ops = 0
+    if near:
+        n_real = int(sbd.tile_ptr[-1])
+        nb += (n_real * (sbd.vflat.element_size() * 64 * 128 + 128 * 4 + 4)
+               + nbytes(sbd.tile_ptr))
+        ops += 2 * n_real * 64 * 128
+    if far:
+        fp = sbd.far
+        nb += fp.n_far * (64 * fp.bt.element_size() + 3 * 4)
+        ops += 2 * fp.n_far * 64
+    return nb, ops
+
+
 def spmv_phase(name, A, sb, dev, kernel_times):
     """Phase 1 and 3 for one container (f32 or bf16) of matrix `name`."""
     import numpy as np
@@ -435,6 +492,10 @@ def spmv_phase(name, A, sb, dev, kernel_times):
     oracle = (quantized(A) if dtype == "bfloat16" else A) @ x
     gate(y, oracle, f"{name} {dtype} sbell_spmv")
 
+    spmv_k = spmv_sbell.sbell_spmv_panes(sbd, x3)
+    spmv_p = plain_panes(x3)
+    assert_close(spmv_k, spmv_p, f"{name} {dtype} fused SpMV kernel",
+                 TOL_PLAIN, TOL_PLAIN)
     near_k = spmv_sbell.near_out_panes(sbd, x3)
     near_p = spmv_sbell.near_out_panes_torch(sbd, x3)
     assert_close(near_k, near_p, f"{name} {dtype} near kernel", TOL_PLAIN,
@@ -444,42 +505,58 @@ def spmv_phase(name, A, sb, dev, kernel_times):
     assert_close(far_k, far_p, f"{name} {dtype} far kernel", TOL_PLAIN,
                  TOL_PLAIN)
 
-    fns = {
+    kernels = {
         "near": lambda: spmv_sbell.near_out_panes(sbd, x3),
-        "near_plain": lambda: spmv_sbell.near_out_panes_torch(sbd, x3),
         "far": lambda: far_sbell.far_pane_out_panes(sbd.far, x3, guarded),
+        "spmv": lambda: spmv_sbell.sbell_spmv_panes(sbd, x3),
+    }
+    plains = {
+        "near_plain": lambda: spmv_sbell.near_out_panes_torch(sbd, x3),
         "far_plain": lambda: far_sbell.far_pane_out_panes_torch(
             sbd.far, x3, guarded),
-        "spmv": lambda: spmv_sbell.sbell_spmv_panes(sbd, x3),
         "spmv_plain": lambda: plain_panes(x3),
     }
+    fns = {**kernels, **plains}
     ev = {k: time_ms(f) for k, f in fns.items()}
-    dv, split = {}, {}
-    for k, f in fns.items():
+    gr = {k: graph_each_ms(f) for k, f in fns.items()}
+    # device time: CUPTI for the kernels (graph replay where a profile was
+    # lossy), graph replay for the plain versions; cold: the L2 flushed,
+    # by CUPTI and by graph replay
+    dv, split, cold, cold_gr = {}, {}, {}, {}
+    for k, f in kernels.items():
         dv[k], split[k] = device_ms(f)
+        cold[k] = cold_device_ms(f)
+        cold_gr[k] = cold_graph_ms(f)
+    t = {k: dv.get(k) or gr[k] for k in fns}
+    if split["spmv"] and (len(split["spmv"]) != 1 or not all(
+            "sbell_spmv_kernel" in k for k in split["spmv"])):
+        raise AssertionError(f"{name} {dtype}: the fused SpMV ran "
+                             f"{sorted(split['spmv'])}, expected one "
+                             "sbell_spmv_kernel and nothing else")
     case = f"{name}/{dtype}"
-    kernel_times["near"][case] = (dv["near"] or ev["near"],
-                                  dv["near_plain"] or ev["near_plain"],
-                                  max_err(near_k, near_p))
-    kernel_times["far"][case] = (dv["far"] or ev["far"],
-                                 dv["far_plain"] or ev["far_plain"],
-                                 max_err(far_k, far_p))
-    t_spmv = dv["spmv"] or ev["spmv"]
-    if case == "cant/float32":
-        WORK[("near", case)] = (leaf_bytes(sbd) + nbytes(x3, near_k),
-                                2 * sbd.vflat.numel())
-        WORK[("far", case)] = (leaf_bytes(sbd.far) + nbytes(x3, far_k),
-                               2 * sbd.far.bt.numel())
+    for k, got, want in (("near", near_k, near_p), ("far", far_k, far_p),
+                         ("spmv", spmv_k, spmv_p)):
+        kernel_times[k][case] = (t[k], t[f"{k}_plain"], max_err(got, want))
+        WORK[(k, case)] = sbell_work(sbd, x3, got, k != "far", k != "near")
+    t_spmv = t["spmv"]
     emit({"phase": "spmv", "matrix": name, "dtype": dtype, "rows": m,
           "nnz": int(A.nnz), "n_stripes": sbd.n_stripes,
           "n_tiles": sbd.n_tiles, "hbm_bytes": sbd.hbm_bytes,
+          "k_max": sbd.k_max,
           "max_abs_err_vs_plain": max_err(y, y_plain),
+          "fused_max_abs_err_vs_plain": max_err(spmv_k, spmv_p),
           "max_abs_err_vs_scipy": float(np.abs(y.cpu().numpy()
                                                - oracle).max()),
           **{f"{k}_event_ms": ev[k] for k in ("near", "near_plain", "spmv",
                                               "spmv_plain")},
-          **{f"{k}_device_ms": dv[k] for k in ("near", "near_plain", "spmv",
-                                               "spmv_plain")},
+          **{f"{k}_device_ms": dv[k] for k in ("near", "spmv")},
+          **{f"{k}_graph_ms": gr[k] for k in ("near", "near_plain", "spmv",
+                                              "spmv_plain")},
+          **{f"{k}_cold_device_ms": cold[k] for k in ("near", "spmv")},
+          **{f"{k}_cold_graph_ms": cold_gr[k] for k in ("near", "spmv")},
+          **{f"{k}_bound_ms": max(WORK[(k, case)][0] / PEAK_BYTES_S,
+                                  WORK[(k, case)][1] / PEAK_F32_OPS_S) * 1e3
+             for k in ("near", "spmv")},
           "spmv_device_split_ms": split["spmv"],
           "gnnz_per_s": A.nnz / (t_spmv * 1e-3) / 1e9,
           "hbm_gb_per_s": sbd.hbm_bytes / (t_spmv * 1e-3) / 1e9})
@@ -488,7 +565,11 @@ def spmv_phase(name, A, sb, dev, kernel_times):
           "d_max": sbd.far.d_max, "n_far": sbd.far.n_far,
           "max_abs_err_vs_plain": max_err(far_k, far_p),
           **{f"{k}_event_ms": ev[k] for k in ("far", "far_plain")},
-          **{f"{k}_device_ms": dv[k] for k in ("far", "far_plain")}})
+          "far_device_ms": dv["far"], "far_cold_device_ms": cold["far"],
+          "far_cold_graph_ms": cold_gr["far"],
+          **{f"{k}_graph_ms": gr[k] for k in ("far", "far_plain")},
+          "far_bound_ms": max(WORK[("far", case)][0] / PEAK_BYTES_S,
+                              WORK[("far", case)][1] / PEAK_F32_OPS_S) * 1e3})
     return sbd
 
 
@@ -2503,17 +2584,21 @@ def library_phase(dev) -> None:
                                      dev),
          "poisson3072": csr_library_ms(matrices.poisson2d(3072), dev),
          "poisson1024": csr_library_ms(matrices.poisson2d(1024), dev)}
-    LIBRARY_MS["near"] = LIBRARY_MS["far"] = t["cant_like"]
+    LIBRARY_MS["near"] = LIBRARY_MS["far"] = LIBRARY_MS["spmv"] = \
+        t["cant_like"]
     LIBRARY_MS["dia"] = LIBRARY_MS["dia_probe"] = t["poisson3072"]
     LIBRARY_MS["sell"] = LIBRARY_MS["sellp"] = t["poisson1024"]
     emit({"phase": "library", **{f"torch_sparse_csr_mv_{k}_ms": v
                                  for k, v in t.items()}})
 
 
-def check_launches(near: int, far: int, matvecs: int) -> None:
-    if near < matvecs or far < matvecs:
-        raise AssertionError(f"main path launched near {near}, far {far} "
-                             f"times for {matvecs} matvecs")
+def check_launches(spmv: int, near: int, far: int, matvecs: int) -> None:
+    """Exactly one fused SpMV launch a main-path matvec, and no near-only
+    or far-only launch."""
+    if spmv != matvecs or near or far or matvecs < 1:
+        raise AssertionError(f"main path launched the fused SpMV {spmv}, "
+                             f"near {near}, far {far} times for {matvecs} "
+                             "matvecs")
 
 
 def check_family_launches(launches: dict) -> None:
@@ -2544,7 +2629,8 @@ def run(dev):
     from libhpc_tpu_torch.sparse.sbell import SBELL
 
     kernel_times = {k: {} for k in (
-        "near", "far", "dia", "dia_probe", "sell", "sellp", "sort_chunk",
+        "near", "far", "spmv", "dia", "dia_probe", "sell", "sellp",
+        "sort_chunk",
         "sort_chunk_staged", "sort_merge_level", "sort_merge_pair",
         "sort_split_search",
         "histogram", "sort_chunk_kv", "sort_chunk_kv_staged",
@@ -2567,12 +2653,14 @@ def run(dev):
             sb_cant, A_cant = sbd, A
         del sbd, sb, A
 
+    spmv_sbell.SPMV_LAUNCHES = 0
     spmv_sbell.NEAR_LAUNCHES = 0
     far_sbell.FAR_LAUNCHES = 0
     matvecs = cg_phase(A_cant, sb_cant, dev)
+    spmv = spmv_sbell.SPMV_LAUNCHES
     near, far = spmv_sbell.NEAR_LAUNCHES, far_sbell.FAR_LAUNCHES
     csr_cg_phase(dev)
-    check_launches(near, far, matvecs)
+    check_launches(spmv, near, far, matvecs)
     del sb_cant, A_cant
 
     family = {}
@@ -2608,7 +2696,7 @@ def run(dev):
     check_family_launches(family)
     sort_split_phase()
     library_phase(dev)
-    emit({"phase": "launches", "near": near, "far": far,
+    emit({"phase": "launches", "spmv": spmv, "near": near, "far": far,
           "matvecs": matvecs, **family})
     torch.cuda.synchronize()
 
@@ -2635,7 +2723,7 @@ def run(dev):
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": LIBRARY_MS.get(kind)}
 
-    near_src = "libhpc_tpu_torch/csrc/sbell_near.cu"
+    spmv_src = "libhpc_tpu_torch/csrc/sbell_spmv.cu"
     merge_src = "libhpc_tpu_torch/csrc/sort_merge.cu"
     sort_paths = {k: family["sort"][k] + family["sort_segmented"][k]
                   for k in ("chunk", "merge", "pair", "split")}
@@ -2648,12 +2736,17 @@ def run(dev):
     ma_src = "libhpc_tpu_torch/csrc/microarch.cu"
     cant = ["cant/float32"]
     return {"kernels": [
-        entry("near", "sbell_near", near_src,
-              "libhpc_tpu/ops/spmv_pallas.py:59", near, cant),
-        entry("near", "sbell_near_ranged", near_src,
-              "libhpc_tpu/ops/spmv_pallas.py:92", near, cant),
-        entry("far", "far_pane", "libhpc_tpu_torch/csrc/far_pane.cu",
-              "libhpc_tpu/ops/far_pallas.py:33", far, cant),
+        # K1/K2 and K3 are modes of one kernel; the main path runs their
+        # functions fused, one launch a matvec: each row counts those
+        # launches, and times its mode alone
+        entry("near", "sbell_near", spmv_src,
+              "libhpc_tpu/ops/spmv_pallas.py:59", spmv, cant),
+        entry("near", "sbell_near_ranged", spmv_src,
+              "libhpc_tpu/ops/spmv_pallas.py:92", spmv, cant),
+        entry("far", "far_pane", spmv_src,
+              "libhpc_tpu/ops/far_pallas.py:33", spmv, cant),
+        entry("spmv", "sbell_spmv_fused", spmv_src,
+              "libhpc_tpu/ops/spmv_pallas.py:59", spmv, cant),
         entry("dia", "dia", dia_src, "libhpc_tpu/ops/dia_pallas.py:100",
               family["dia"]["dia"] + family["dia_cg"]["dia"],
               ["poisson3072"]),
@@ -2761,13 +2854,15 @@ def main() -> int:
                              "K18's half-width path runs no wgmma")
     # registers and spills of the kernels redesigned last (K18's FMA
     # kernel, K13/K14's one-pass scan, the split search and merge-path
-    # kernels of K9/K10/K12, the radix chunk sorts of K8/K11, K21b)
+    # kernels of K9/K10/K12, the radix chunk sorts of K8/K11, K21b, the
+    # SpMV kernel of K1-K3)
     ptxas = {fn: use for fn, use in _cuda_utils.ptxas_usage(
                  "matmul.cu", "scan.cu", "sort_merge.cu", "sort_chunk.cu",
-                 "microarch.cu").items()
+                 "microarch.cu", "sbell_spmv.cu").items()
              if any(k in fn for k in ("fma_kernel", "scan_kernel",
                                       MERGE_KERNEL, SPLIT_KERNEL,
-                                      CHUNK_KERNEL, "dma_gather_kernel"))}
+                                      CHUNK_KERNEL, "dma_gather_kernel",
+                                      "sbell_spmv_kernel"))}
     spilled = [fn for fn, use in ptxas.items()
                if CHUNK_KERNEL in fn and use.get("spill_stores", 0)]
     if spilled:

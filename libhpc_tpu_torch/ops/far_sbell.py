@@ -1,22 +1,24 @@
 """FarPane far-set contribution to an SBELL SpMV.
 
-Port of ``libhpc_tpu/ops/far_pallas.py``: ``far_pane_out_panes`` wraps the
-hand-written CUDA kernel ``csrc/far_pane.cu`` (the port of the Pallas
-``far_pallas.py:_kernel``), and ``far_pane_out_panes_torch`` is its plain
-PyTorch version, the port of ``far_pane_out_panes_xla``.
+Port of ``libhpc_tpu/ops/far_pallas.py``: ``far_pane_out_panes`` launches
+the far-only mode of the SpMV kernel ``csrc/sbell_spmv.cu`` (the port of
+the Pallas ``far_pallas.py:_kernel``; ``spmv_sbell.sbell_spmv_panes`` runs
+the same far set fused into its near launch), and
+``far_pane_out_panes_torch`` is its plain PyTorch version, the port of
+``far_pane_out_panes_xla``.
 
 The wrapper runs the plain version for CPU tensors only; for CUDA tensors
-it launches the kernel or raises. ``FAR_LAUNCHES`` counts kernel launches.
+it launches the kernel or raises. ``FAR_LAUNCHES`` counts far-only
+launches.
 """
 
 from __future__ import annotations
 
 import torch
 
-from libhpc_tpu_torch.ops._cuda_utils import (check_launch, check_tensor,
-                                              current_stream_ptr,
-                                              kernel_device, kernel_fn)
-from libhpc_tpu_torch.sparse.sbell import B, LANE, VROWS, W_PANES, FarPane
+from libhpc_tpu_torch.ops._cuda_utils import kernel_device
+from libhpc_tpu_torch.ops.spmv_sbell import MODE_FAR, check_far, launch
+from libhpc_tpu_torch.sparse.sbell import B, LANE, FarPane
 
 FAR_LAUNCHES = 0
 
@@ -43,29 +45,14 @@ def far_pane_out_panes(fp: FarPane, x3: torch.Tensor, guarded_rows: int
     ((n_stripes + W_PANES - 1) * B, LANE). x3 is the guarded pane array
     the near kernel consumes."""
     global FAR_LAUNCHES
-    dev = kernel_device(fp.ep, fp.lidx, fp.bt, fp.oh, x3)
+    dev = kernel_device(fp.ep, fp.lidx, fp.bt, fp.oh, fp.olane, x3)
     if dev.type == "cpu":
         return far_pane_out_panes_torch(fp, x3, guarded_rows)
-    S, E = fp.n_grouped, fp.e_pad
-    if not 0 < E <= LANE:
-        raise ValueError(f"e_pad {E} outside 1..{LANE}")
+    S = fp.n_grouped
     if guarded_rows > S * B:
         raise ValueError(f"guarded_rows {guarded_rows} > {S * B}")
-    check_tensor(fp.ep, "ep", dev, (torch.int32,), (S, LANE))
-    check_tensor(fp.lidx, "lidx", dev, (torch.int32,), (S, LANE))
-    check_tensor(fp.bt, "bt", dev, (torch.float32, torch.bfloat16),
-                 (S * VROWS, LANE))
-    check_tensor(fp.oh, "oh", dev, (torch.float32,), (S * E, LANE))
-    n_panes = fp.shape[1] // (B * LANE)
-    check_tensor(x3, "x3", dev, (torch.float32,),
-                 (n_panes + W_PANES - 1, B, LANE))
+    check_far(fp, x3, dev)
     out = torch.empty((S * B, LANE), dtype=torch.float32, device=dev)
-    name = "far_pane_f32" if fp.bt.dtype == torch.float32 else "far_pane_bf16"
-    fn = kernel_fn(name, 6, 2)
-    with torch.cuda.device(dev):
-        rc = fn(fp.ep.data_ptr(), fp.lidx.data_ptr(), fp.bt.data_ptr(),
-                fp.oh.data_ptr(), x3.data_ptr(), out.data_ptr(), S, E,
-                current_stream_ptr())
-    check_launch(rc, name)
+    launch(MODE_FAR, None, fp, x3, out, S)
     FAR_LAUNCHES += 1
     return out[:guarded_rows]

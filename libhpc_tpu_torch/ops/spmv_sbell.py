@@ -1,22 +1,28 @@
 """SBELL SpMV — the main path's matrix-vector product.
 
 Port of ``libhpc_tpu/ops/spmv_pallas.py`` (``x_to_panes``, ``panes_to_x``,
-``sbell_spmv_panes``, ``sbell_spmv_padded``, ``sbell_spmv``):
+``sbell_spmv_panes``, ``sbell_spmv_padded``, ``sbell_spmv``). One
+hand-written CUDA kernel, ``csrc/sbell_spmv.cu``, serves the whole product
+in three launch modes (``launch``):
 
-  NEAR part: ``near_out_panes`` wraps the hand-written CUDA kernel
-    ``csrc/sbell_near.cu``, the port of both Pallas near kernels
+  near only  ``near_out_panes``: the port of both Pallas near kernels
     (``spmv_pallas.py:_kernel`` and ``:_ranged_kernel``);
     ``near_out_panes_torch`` is its plain PyTorch version.
-  FAR part: a FarPane far set goes through ``far_sbell.far_pane_out_panes``
-    (the far kernel) and is added to the near output; flat FarBlocks go
-    through the plain ``spmv.far_spmv``, as the reference's go through XLA.
+  far only   ``far_sbell.far_pane_out_panes``: the port of
+    ``far_pallas.py:_kernel`` (a FarPane far set).
+  fused      ``sbell_spmv_panes`` on a FarPane far set or none: near and
+    far in one launch a matvec, into an output it writes whole.
+A flat FarBlocks far set takes the near launch plus the plain
+``spmv.far_spmv``, as the reference's goes through XLA.
 
 The reference splits the near path into an x-resident and a row-chunked
 kernel because x and the output had to fit the TPU's VMEM; the Hopper
 kernel reads x from global memory, so the port has one path and no chunk
-plan. The kernel wrapper runs the plain version for CPU tensors only; for
-CUDA tensors it launches the kernel or raises. ``NEAR_LAUNCHES`` counts
-kernel launches.
+plan. One CTA takes a stripe and streams its tiles through a ring of
+shared-memory stages. The wrappers run the plain versions for CPU tensors
+only; for CUDA tensors they launch the kernel or raise.
+``NEAR_LAUNCHES`` counts near-only launches, ``SPMV_LAUNCHES`` fused ones
+(``far_sbell.FAR_LAUNCHES`` far-only ones).
 """
 
 from __future__ import annotations
@@ -30,6 +36,81 @@ from libhpc_tpu_torch.sparse.sbell import (B, LANE, PANE_COLS, SBELL, VROWS,
                                            W_PANES, FarPane)
 
 NEAR_LAUNCHES = 0
+SPMV_LAUNCHES = 0
+
+MODE_NEAR, MODE_FAR, MODE_BOTH = 1, 2, 3
+
+
+def _check_aligned(t: torch.Tensor, name: str) -> None:
+    """The kernel's bulk copies and x gathers need 16-byte aligned bases."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data pointer not 16-byte aligned")
+
+
+def check_near(sb: SBELL, x3: torch.Tensor, dev: torch.device) -> None:
+    T, S = sb.n_tiles, sb.n_stripes
+    check_tensor(sb.vflat, "vflat", dev, (torch.float32, torch.bfloat16),
+                 (T * VROWS, LANE))
+    check_tensor(sb.meta, "meta", dev, (torch.int32,), (T, LANE))
+    check_tensor(sb.pane, "pane", dev, (torch.int32,), (T,))
+    check_tensor(sb.tile_ptr, "tile_ptr", dev, (torch.int32,), (S + 1,))
+    check_tensor(x3, "x3", dev, (torch.float32,),
+                 (sb.n_panes + W_PANES - 1, B, LANE))
+    for t, name in ((sb.vflat, "vflat"), (sb.meta, "meta"), (x3, "x3")):
+        _check_aligned(t, name)
+
+
+def check_far(fp: FarPane, x3: torch.Tensor, dev: torch.device) -> None:
+    S, E = fp.n_grouped, fp.e_pad
+    if not 0 < E <= LANE or E % 4:
+        raise ValueError(f"e_pad {E}: the kernel takes a multiple of 4 in "
+                         f"4..{LANE}")
+    for t, name in ((fp.ep, "ep"), (fp.lidx, "lidx"), (fp.olane, "olane")):
+        check_tensor(t, name, dev, (torch.int32,), (S, LANE))
+    check_tensor(fp.bt, "bt", dev, (torch.float32, torch.bfloat16),
+                 (S * VROWS, LANE))
+    n_panes = fp.shape[1] // PANE_COLS
+    check_tensor(x3, "x3", dev, (torch.float32,),
+                 (n_panes + W_PANES - 1, B, LANE))
+    _check_aligned(x3, "x3")
+
+
+def launch(mode: int, sb: SBELL | None, fp: FarPane | None,
+           x3: torch.Tensor, out: torch.Tensor, n_out: int) -> None:
+    """One launch of csrc/sbell_spmv.cu on checked CUDA tensors: `mode`
+    (MODE_NEAR, MODE_FAR, MODE_BOTH) over n_out stripes of `out`, one CTA a
+    stripe. This counts nothing."""
+    vals = sb.vflat if sb is not None else fp.bt
+    if fp is not None and sb is not None and fp.bt.dtype != sb.vflat.dtype:
+        raise TypeError(f"far values {fp.bt.dtype} and near values "
+                        f"{sb.vflat.dtype} differ")
+    name = ("sbell_spmv_f32" if vals.dtype == torch.float32
+            else "sbell_spmv_bf16")
+    fn = kernel_fn(name, 10, 5)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    near = (sb.vflat, sb.meta, sb.pane, sb.tile_ptr) if sb is not None \
+        else (None,) * 4
+    far = (fp.ep, fp.lidx, fp.bt, fp.olane) if fp is not None \
+        else (None,) * 4
+    with torch.cuda.device(out.device):
+        rc = fn(*map(ptr, near), x3.data_ptr(), *map(ptr, far),
+                out.data_ptr(), n_out, sb.n_stripes if sb is not None else 0,
+                fp.e_pad if fp is not None else 0,
+                sb.k_max if sb is not None else 0, mode,
+                current_stream_ptr())
+    check_launch(rc, name)
+
+
+def _near_launch(sb: SBELL, fp: FarPane | None, x3: torch.Tensor,
+                 dev: torch.device) -> torch.Tensor:
+    """Near (fp None) or fused launch into a new output."""
+    S = sb.n_stripes + W_PANES - 1
+    out = torch.empty((S * B, LANE), dtype=torch.float32, device=dev)
+    launch(MODE_BOTH if fp is not None else MODE_NEAR, sb, fp, x3, out, S)
+    return out
 
 
 def near_out_panes_torch(sb: SBELL, x3: torch.Tensor) -> torch.Tensor:
@@ -55,24 +136,8 @@ def near_out_panes(sb: SBELL, x3: torch.Tensor) -> torch.Tensor:
     dev = kernel_device(sb.vflat, sb.meta, sb.pane, sb.tile_ptr, x3)
     if dev.type == "cpu":
         return near_out_panes_torch(sb, x3)
-    T, S = sb.n_tiles, sb.n_stripes
-    check_tensor(sb.vflat, "vflat", dev, (torch.float32, torch.bfloat16),
-                 (T * VROWS, LANE))
-    check_tensor(sb.meta, "meta", dev, (torch.int32,), (T, LANE))
-    check_tensor(sb.pane, "pane", dev, (torch.int32,), (T,))
-    check_tensor(sb.tile_ptr, "tile_ptr", dev, (torch.int32,), (S + 1,))
-    check_tensor(x3, "x3", dev, (torch.float32,),
-                 (sb.n_panes + W_PANES - 1, B, LANE))
-    out = torch.zeros(((S + W_PANES - 1) * B, LANE), dtype=torch.float32,
-                      device=dev)
-    name = ("sbell_near_f32" if sb.vflat.dtype == torch.float32
-            else "sbell_near_bf16")
-    fn = kernel_fn(name, 6, 1)
-    with torch.cuda.device(dev):
-        rc = fn(sb.vflat.data_ptr(), sb.meta.data_ptr(), sb.pane.data_ptr(),
-                sb.tile_ptr.data_ptr(), x3.data_ptr(), out.data_ptr(), S,
-                current_stream_ptr())
-    check_launch(rc, name)
+    check_near(sb, x3, dev)
+    out = _near_launch(sb, None, x3, dev)
     NEAR_LAUNCHES += 1
     return out
 
@@ -99,9 +164,28 @@ def sbell_spmv_panes(sb: SBELL, x3: torch.Tensor, chunk_plan=None
     so for square matrices it feeds the next matvec directly. Iterative
     solvers keep vectors in this layout across iterations.
 
-    chunk_plan is accepted for signature parity with the reference and
-    unused: the Hopper kernel reads x from global memory, so there is no
+    On the card a FarPane far set (or none) makes one fused launch; flat
+    FarBlocks add the plain far_spmv to the near launch. chunk_plan is
+    accepted for signature parity with the reference and unused: the
+    Hopper kernel reads x from global memory, so there is no
     resident/chunked split."""
+    global SPMV_LAUNCHES
+    fused = sb.far is None or isinstance(sb.far, FarPane)
+    if fused and x3.device.type == "cuda":
+        fp = sb.far
+        leaves = (sb.vflat, sb.meta, sb.pane, sb.tile_ptr, x3)
+        if fp is not None:
+            leaves += (fp.ep, fp.lidx, fp.bt, fp.olane)
+        dev = kernel_device(*leaves)
+        check_near(sb, x3, dev)
+        if fp is not None:
+            check_far(fp, x3, dev)
+            if fp.n_grouped < sb.n_stripes + W_PANES - 1:
+                raise ValueError(f"far set of {fp.n_grouped} grouped stripes "
+                                 f"for {sb.n_stripes} stripes")
+        out = _near_launch(sb, fp, x3, dev)
+        SPMV_LAUNCHES += 1
+        return out.reshape(sb.n_stripes + W_PANES - 1, B, LANE)
     out = near_out_panes(sb, x3)
     if isinstance(sb.far, FarPane):
         from libhpc_tpu_torch.ops.far_sbell import far_pane_out_panes

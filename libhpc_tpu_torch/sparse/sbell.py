@@ -19,8 +19,9 @@ Layout (see the reference module for its history):
 The TPU tuning environment knobs of the reference (LIBHPC_SBELL_TPB,
 LIBHPC_SBELL_TPB_BF16) are not ported: TPB and TPB_BF16 stay as constants
 because ``tpb`` decides the tile padding, and the containers must match the
-reference's. The port adds one derived field, ``SBELL.tile_ptr``, which the
-Hopper near kernel needs (ops/spmv_sbell.py).
+reference's. The port adds derived fields, which the Hopper SpMV kernel
+needs (ops/spmv_sbell.py): ``SBELL.tile_ptr``, ``SBELL.k_max`` and
+``FarPane.olane``.
 """
 
 from __future__ import annotations
@@ -128,18 +129,31 @@ def _group_far(rows, cols, blocks, n_stripes: int, shape):
                    e_pad=E_pad, d_max=D)
 
 
+def _olane(oh: torch.Tensor, e_pad: int) -> torch.Tensor:
+    """(S_g, LANE) i32: the lane of the 1 in each entry's row of the
+    one-hot (S_g * e_pad, LANE) plane, -1 for an all-zero row and past
+    e_pad."""
+    oh3 = oh.reshape(-1, e_pad, LANE)
+    lane = torch.where(oh3.amax(dim=2) > 0, oh3.argmax(dim=2), -1)
+    olane = torch.full((oh3.shape[0], LANE), -1, dtype=torch.int32,
+                       device=oh.device)
+    olane[:, :e_pad] = lane.to(torch.int32)
+    return olane
+
+
 @dataclasses.dataclass(frozen=True)
 class FarPane(TensorLeaves):
     """Kernel-ready far set: far blocks grouped by stripe, up to LANE
-    entries per stripe, consumed by the far kernel
-    (ops/far_sbell.py:far_pane_out_panes):
+    entries per stripe, consumed by the SpMV kernel
+    (ops/far_sbell.py:far_pane_out_panes, ops/spmv_sbell.py):
 
       gather   gx[j, e] = x3[ep[s, e], j, lidx[s, e]]  (0 where ep = -1)
       product  prod[i, e] = sum_j bt[64 s + 8 j + i, e] * gx[j, e]
       scatter  out[8 s + i, r] = sum_e prod[i, e] * oh[s e_pad + e, r]
 
     ``panes`` (the distinct panes of each stripe) is kept for parity with
-    the reference; the Hopper kernel gathers at ``ep`` directly."""
+    the reference; the Hopper kernel gathers at ``ep`` directly, and
+    scatters by ``olane`` instead of the one-hot ``oh``."""
 
     panes: torch.Tensor   # (S_g, D) i32 distinct panes per stripe (0-pad)
     ep: torch.Tensor      # (S_g, LANE) i32 entry's pane (-1 = no entry)
@@ -151,6 +165,15 @@ class FarPane(TensorLeaves):
     n_grouped: int = dataclasses.field(metadata=dict(static=True))
     e_pad: int = dataclasses.field(metadata=dict(static=True))
     d_max: int = dataclasses.field(metadata=dict(static=True))
+    # derived, not in the reference: (S_g, LANE) i32 output lane of each
+    # entry (the 1 of its row of oh), -1 where there is none; read by the
+    # Hopper kernel in place of oh; built from oh once
+    olane: torch.Tensor | None = dataclasses.field(
+        default=None, metadata=dict(derived=True))
+
+    def __post_init__(self):
+        if self.olane is None:
+            object.__setattr__(self, "olane", _olane(self.oh, self.e_pad))
 
     @property
     def n_far(self) -> int:
@@ -199,8 +222,11 @@ class SBELL(TensorLeaves):
     n_panes: int = dataclasses.field(metadata=dict(static=True))
     tpb: int = dataclasses.field(default=TPB, metadata=dict(static=True))
     # derived, not in the reference: (n_stripes+1,) i32 offsets of each
-    # stripe's real tiles, read by the near kernel; built from sid once
+    # stripe's real tiles, and the most tiles a stripe holds, read by the
+    # SpMV kernel; built from sid once
     tile_ptr: torch.Tensor | None = dataclasses.field(
+        default=None, metadata=dict(derived=True))
+    k_max: int | None = dataclasses.field(
         default=None, metadata=dict(derived=True))
 
     def __post_init__(self):
@@ -208,6 +234,11 @@ class SBELL(TensorLeaves):
             ptr = _tile_ptr(self.sid.cpu().numpy(), self.n_stripes)
             object.__setattr__(self, "tile_ptr",
                                _t(ptr).to(self.sid.device))
+        if self.k_max is None:
+            ptr = self.tile_ptr.cpu().numpy()
+            object.__setattr__(self, "k_max",
+                               int(np.diff(ptr).max()) if len(ptr) > 1
+                               else 0)
 
     @property
     def n_tiles(self) -> int:

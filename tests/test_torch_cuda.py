@@ -147,6 +147,194 @@ def test_wrappers_raise_on_bad_input(cuda_device):
         far_sbell.far_pane_out_panes(sb.far, x3.cpu(), guarded)
 
 
+def _x3_plain(sb, x3):
+    guarded = (sb.n_stripes + W_PANES - 1) * B
+    out = spmv_sbell.near_out_panes_torch(sb, x3)
+    if sb.far is not None:
+        out = out + far_sbell.far_pane_out_panes_torch(sb.far, x3, guarded)
+    return out.reshape(-1, B, 128)
+
+
+def _counts():
+    return (spmv_sbell.SPMV_LAUNCHES, spmv_sbell.NEAR_LAUNCHES,
+            far_sbell.FAR_LAUNCHES)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["block_far", "far_split", "wide_spread"])
+def test_fused_spmv_matches_plain(cuda_device, name, dtype):
+    """One fused launch a sbell_spmv_panes call, no near-only or far-only
+    launch, against the plain near + far at TOL_PLAIN."""
+    sb = SBELL.from_scipy(MATRICES[name]())
+    if dtype != torch.float32:
+        sb = sb.astype_values(dtype)
+    sb = sb.to(cuda_device)
+    assert isinstance(sb.far, FarPane)
+    x3 = _x3(sb, cuda_device, seed=2)
+    s0, n0, f0 = _counts()
+    got = spmv_sbell.sbell_spmv_panes(sb, x3)
+    assert _counts() == (s0 + 1, n0, f0)
+    torch.cuda.synchronize()
+    assert torch.all(got[sb.n_stripes:] == 0)
+    _close(got, _x3_plain(sb, x3))
+
+
+def _stripe_depths():
+    """Five stripes: stripe 0 has K_CAP tiles (its block-rows hold 32 or
+    33 blocks in one pane: 32 slices kept, the 64 blocks of slice 33 go
+    far), stripe 1 none, stripe 2 one (a block diagonal), stripe 3 three,
+    stripe 4 none."""
+    rng = np.random.default_rng(5)
+    rows, cols = [], []
+    for br in range(128):                       # stripe 0
+        k = 33 if br < 64 else 32
+        rows += [br] * k
+        cols += list(range(k))
+    for br in range(256, 384):                  # stripe 2
+        rows.append(br)
+        cols.append(br)
+    for br in range(384, 512):                  # stripe 3
+        rows += [br] * 3
+        cols += [br - 1, br, br + 1]
+    rows, cols = np.array(rows), np.array(cols)
+    n = 5 * 1024
+    r = (rows[:, None] * 8 + np.arange(8)).repeat(8, axis=1).ravel()
+    c = np.tile(cols[:, None] * 8 + np.arange(8), (1, 8)).ravel()
+    v = rng.standard_normal(r.size).astype(np.float32)
+    return sps.coo_matrix((v, (r, c)), shape=(n, n)).tocsr()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["stripe_depths", "far_split", "block_far"])
+def test_spmv_kernel_every_mode(cuda_device, hang_guard, name, dtype):
+    """Each mode against its plain version, into memory that held NaN.
+    stripe_depths: stripes of K_CAP, 0, 1 and 3 tiles (more tiles than the
+    ring has stages, fewer, and none); far_split and block_far: far entries
+    in stripes with few tiles."""
+    from libhpc_tpu_torch.sparse.sbell import K_CAP
+
+    A = _stripe_depths() if name == "stripe_depths" else MATRICES[name]()
+    sb = SBELL.from_scipy(A)
+    if dtype != torch.float32:
+        sb = sb.astype_values(dtype)
+    sb = sb.to(cuda_device)
+    depth = np.diff(sb.tile_ptr.cpu().numpy())
+    if name == "stripe_depths":
+        assert list(depth) == [K_CAP, 0, 1, 3, 0]
+    assert isinstance(sb.far, FarPane)
+    x3 = _x3(sb, cuda_device, seed=3)
+    S = sb.n_stripes + W_PANES - 1
+    near = spmv_sbell.near_out_panes_torch(sb, x3)
+    both = _x3_plain(sb, x3).reshape(-1, 128)
+    for mode, want in ((spmv_sbell.MODE_NEAR, near),
+                       (spmv_sbell.MODE_BOTH, both)):
+        out = torch.full_like(want, float("nan"))
+        spmv_sbell.launch(mode, sb, sb.far if mode == 3 else None, x3, out, S)
+        torch.cuda.synchronize()
+        _close(out, want)
+    far = far_sbell.far_pane_out_panes_torch(sb.far, x3, sb.far.n_grouped * B)
+    out = torch.full_like(far, float("nan"))
+    spmv_sbell.launch(spmv_sbell.MODE_FAR, None, sb.far, x3, out,
+                      sb.far.n_grouped)
+    _close(out, far)
+
+
+@pytest.mark.skipif(not torch.cuda.is_available()
+                    or torch.cuda.device_count() < 2,
+                    reason="needs two CUDA devices")
+def test_spmv_launches_on_a_second_device(cuda_device):
+    """The kernel's shared-memory opt-in is made on each device: f32 rings
+    take more than 48 KB, so a launch on a device that missed it fails.
+    Each mode runs on device 0, then on device 1."""
+    A = MATRICES["block_far"]()
+    for dev in ("cuda:0", "cuda:1"):
+        sb = SBELL.from_scipy(A).to(dev)
+        x3 = _x3(sb, torch.device(dev), seed=6)
+        rows = (sb.n_stripes + W_PANES - 1) * B
+        with torch.cuda.device(dev):
+            got = spmv_sbell.sbell_spmv_panes(sb, x3)
+            near = spmv_sbell.near_out_panes(sb, x3)
+            far = far_sbell.far_pane_out_panes(sb.far, x3, rows)
+            torch.cuda.synchronize()
+        _close(got, _x3_plain(sb, x3))
+        _close(near, spmv_sbell.near_out_panes_torch(sb, x3))
+        _close(far, far_sbell.far_pane_out_panes_torch(sb.far, x3, rows))
+
+
+def test_spmv_guard_stripes_zero_over_nan(cuda_device):
+    """The kernel writes every output itself: memory that held NaN comes
+    back with exact zeros in the guard stripes and empty stripes."""
+    sb = SBELL.from_scipy(_stripe_depths()).to(cuda_device)
+    x3 = _x3(sb, cuda_device, seed=4)
+    rows = (sb.n_stripes + W_PANES - 1) * B
+    for _ in range(3):
+        junk = torch.full((rows, 128), float("nan"), device=cuda_device)
+        del junk
+        for got in (spmv_sbell.sbell_spmv_panes(sb, x3).reshape(-1, 128),
+                    spmv_sbell.near_out_panes(sb, x3)):
+            torch.cuda.synchronize()
+            assert torch.all(torch.isfinite(got))
+            assert torch.all(got[sb.n_stripes * B:] == 0)
+            assert torch.all(got[B:2 * B] == 0)      # stripe 1: no tiles
+    far = far_sbell.far_pane_out_panes(sb.far, x3, rows)
+    assert torch.all(far[sb.n_stripes * B:] == 0)
+
+
+def test_spmv_far_blocks_take_near_launch(cuda_device):
+    sb = SBELL.from_scipy(MATRICES["far_split"](), group_far=False)
+    sb = sb.to(cuda_device)
+    assert isinstance(sb.far, FarBlocks)
+    x3 = _x3(sb, cuda_device, seed=5)
+    s0, n0, f0 = _counts()
+    got = spmv_sbell.sbell_spmv_panes(sb, x3)
+    assert _counts() == (s0, n0 + 1, f0)
+    A = MATRICES["far_split"]()
+    x = spmv_sbell.panes_to_x(sb, x3)[:A.shape[1]].cpu().numpy()
+    y = spmv_sbell.panes_to_x(sb, got)[:A.shape[0]].cpu().numpy()
+    np.testing.assert_allclose(y, A @ x, rtol=1e-4, atol=1e-4)
+
+
+def test_spmv_raises_on_misaligned_or_strided_input(cuda_device):
+    import dataclasses
+
+    sb = SBELL.from_scipy(MATRICES["block_far"]()).to(cuda_device)
+    x3 = _x3(sb, cuda_device)
+    guarded = (sb.n_stripes + W_PANES - 1) * B
+
+    def shifted(t):
+        buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        assert v.data_ptr() % 16 and v.is_contiguous()
+        return v
+
+    x3m = shifted(x3)
+    for call in (lambda: spmv_sbell.sbell_spmv_panes(sb, x3m),
+                 lambda: spmv_sbell.near_out_panes(sb, x3m),
+                 lambda: far_sbell.far_pane_out_panes(sb.far, x3m, guarded)):
+        with pytest.raises(ValueError, match="aligned"):
+            call()
+    for field in ("vflat", "meta"):
+        bad = dataclasses.replace(sb, **{field: shifted(getattr(sb, field))})
+        with pytest.raises(ValueError, match="aligned"):
+            spmv_sbell.sbell_spmv_panes(bad, x3)
+        strided = getattr(sb, field).t().contiguous().t()
+        bad = dataclasses.replace(sb, **{field: strided})
+        with pytest.raises(ValueError, match="contiguous"):
+            spmv_sbell.sbell_spmv_panes(bad, x3)
+    with pytest.raises(ValueError, match="contiguous"):
+        spmv_sbell.sbell_spmv_panes(sb, x3.transpose(1, 2).contiguous()
+                                    .transpose(1, 2))
+    mixed = dataclasses.replace(
+        sb, far=dataclasses.replace(sb.far, bt=sb.far.bt.to(torch.bfloat16)))
+    with pytest.raises(TypeError):
+        spmv_sbell.sbell_spmv_panes(mixed, x3)
+    with pytest.raises(RuntimeError):      # an unknown mode
+        spmv_sbell.launch(0, sb, None, x3,
+                          torch.empty(guarded, 128, device=cuda_device),
+                          sb.n_stripes + W_PANES - 1)
+
+
 def test_library_is_keyed_by_sources(cuda_device):
     path = _cuda_utils.build_library()
     assert path.exists() and path.parent == _cuda_utils.BUILD_DIR
@@ -325,7 +513,7 @@ def test_auto_format_routes_on_card(cuda_device, monkeypatch, name):
     assert type(c).__name__ == kind
     c = c.to(cuda_device)
     counters = {"DiaPallas": "DIA_LAUNCHES", "SELL": "SELL_LAUNCHES",
-                "SELLP": "SELLP_LAUNCHES", "SBELL": "NEAR_LAUNCHES"}
+                "SELLP": "SELLP_LAUNCHES", "SBELL": "SPMV_LAUNCHES"}
     n0 = getattr(mod, counters[kind]) if mod else 0
     x = np.linspace(-1, 1, A.shape[1]).astype(np.float32)
     y = mv(c, torch.from_numpy(x).to(cuda_device))

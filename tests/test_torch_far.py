@@ -102,6 +102,57 @@ def test_far_pane_bf16():
     assert port.far.oh.dtype == torch.float32
 
 
+def _check_olane(fp):
+    """olane holds, for every entry, the lane of the one 1 in its row of
+    oh, and -1 for an empty row and past e_pad."""
+    S, E = fp.n_grouped, fp.e_pad
+    oh = fp.oh.reshape(S, E, -1).numpy()
+    olane = fp.olane.numpy()
+    assert fp.olane.dtype == torch.int32 and olane.shape == (S, 128)
+    assert np.all(olane[:, E:] == -1)
+    ones = oh.sum(axis=2)
+    assert np.all((ones == 0) | (ones == 1))
+    assert np.array_equal(olane[:, :E] >= 0, ones == 1)
+    assert np.array_equal(olane[:, :E] >= 0, fp.ep.numpy()[:, :E] >= 0)
+    s_i, e_i = np.nonzero(ones)
+    assert np.all(oh[s_i, e_i, olane[s_i, e_i]] == 1.0)
+
+
+FAR_MATRICES = {
+    "block_random21": lambda: matrices.block_random(
+        260, block=8, blocks_per_row=6, seed=21, half_band=5,
+        far_fraction=0.05),
+    "block_random5": lambda: matrices.block_random(
+        260, block=8, blocks_per_row=6, seed=5, half_band=5,
+        far_fraction=0.05),
+    "multi_pane": lambda: sps.coo_matrix(
+        (np.linspace(1, 2, 128, dtype=np.float32),
+         (np.arange(128) * 8, ((np.arange(128) * 977) % 2000) * 8)),
+        shape=(1024, 2048 * 8)).tocsr(),
+    "wide_spread": lambda: _one_stripe_spread(32),
+}
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("name", sorted(FAR_MATRICES))
+def test_far_pane_olane(name, bf16):
+    """The derived output lanes the Hopper kernel reads in place of the
+    one-hot plane: built from oh, equal whether the container comes from
+    the port's builder or from the reference's leaves, carried through
+    astype_values and to(), and left out of the reference's leaves."""
+    A = FAR_MATRICES[name]()
+    ref = RefSBELL.from_scipy(A)
+    port = SBELL.from_scipy(A, device="cpu")
+    assert isinstance(port.far, FarPane)
+    _check_olane(port.far)
+    assert torch.equal(port_of(ref).far.olane, port.far.olane)
+    assert "olane" not in port.far.to_numpy()
+    if bf16:
+        q = port.astype_values(torch.bfloat16).to("cpu")
+        assert q.far.olane is port.far.olane
+        _check_olane(q.far)
+
+
 @pytest.mark.parametrize("bf16", [False, True])
 def test_far_blocks_far_spmv(bf16):
     A = matrices.block_random(260, block=8, blocks_per_row=6, seed=21,

@@ -103,6 +103,7 @@ def test_import_pulls_in_no_jax_triton_or_build():
 
 def test_cpu_tensors_take_the_plain_path(monkeypatch):
     monkeypatch.setattr(spmv_sbell, "NEAR_LAUNCHES", 0)
+    monkeypatch.setattr(spmv_sbell, "SPMV_LAUNCHES", 0)
     monkeypatch.setattr(far_sbell, "FAR_LAUNCHES", 0)
     A = matrices.block_random(150, block=8, blocks_per_row=5, seed=9,
                               half_band=5, far_fraction=0.05)
@@ -116,8 +117,11 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
     far = far_sbell.far_pane_out_panes(sb.far, x3, guarded)
     assert torch.equal(far, far_sbell.far_pane_out_panes_torch(sb.far, x3,
                                                                guarded))
-    spmv_sbell.sbell_spmv(sb, torch.from_numpy(xpad[:A.shape[1]]))
+    y = spmv_sbell.sbell_spmv(sb, torch.from_numpy(xpad[:A.shape[1]]))
+    np.testing.assert_allclose(y.numpy(), A @ xpad[:A.shape[1]], rtol=1e-4,
+                               atol=1e-4)
     assert spmv_sbell.NEAR_LAUNCHES == 0
+    assert spmv_sbell.SPMV_LAUNCHES == 0
     assert far_sbell.FAR_LAUNCHES == 0
 
 

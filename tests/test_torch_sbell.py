@@ -90,6 +90,7 @@ def _check_tile_ptr(sb):
     ptr = sb.tile_ptr.numpy()
     sid = sb.sid.numpy()
     assert ptr[0] == 0 and np.all(np.diff(ptr) >= 0)
+    assert sb.k_max == (int(np.diff(ptr).max()) if sb.n_stripes else 0)
     for s in range(sb.n_stripes):
         assert np.all(sid[ptr[s]:ptr[s + 1]] == s)
     assert torch.all(sb.vflat.reshape(sb.n_tiles, -1)[ptr[-1]:] == 0)
@@ -102,8 +103,12 @@ def test_container_parity(name):
     port = SBELL.from_scipy(A, device="cpu")
     assert_same_container(port, ref)
     _check_tile_ptr(port)
-    # from_numpy of the reference's leaves builds the same container
+    # from_numpy of the reference's leaves builds the same container,
+    # derived fields included
     assert_same_container(port_of(ref), ref)
+    assert torch.equal(port_of(ref).tile_ptr, port.tile_ptr)
+    if isinstance(port.far, FarPane):
+        assert torch.equal(port_of(ref).far.olane, port.far.olane)
     assert port.hbm_bytes == ref.hbm_bytes
     assert port.nnz_stored == ref.nnz_stored
     assert port.far_fraction == ref.far_fraction
