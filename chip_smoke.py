@@ -116,8 +116,11 @@ Phases, one JSON line each:
                f16 (the wgmma kernel after K17 on B, against the f32
                product of the rounded operands, 1e-2; K17's share, device
                times); times beside torch.matmul, TF32 off
- 23 stencil    K19 blur2d_pallas on 8192^2, r = 8, against its plain
-               version and a float64 box sum; the plain blur2d (cumsum
+ 23 stencil    K19 blur2d_pallas on 8192^2, r = 8 (one launch, in the TMA
+               load mode), against its plain version and a float64 box
+               sum; blur_sweep: K19 at r = 1, 8, 32, 64 on 8192^2 and at
+               r = 8 on 8191^2 (the plain-load mode), each against its
+               plain version, with times and GB/s; the plain blur2d (cumsum
                form), F.avg_pool2d (zero-padded mean times 17^2, the
                library yardstick, within 1e-3 of K19) and one F.conv2d with
                a ones 17 x 17 weight (cuDNN, TF32 off) timed beside it;
@@ -2143,13 +2146,51 @@ def box_sum64(a, r: int):
     return stencil.blur2d_pallas_torch(a.double(), r)
 
 
+BLUR_SWEEP = (1, 8, 32, 64)   # radii of K19 at 8192^2 (TMA)
+BLUR_KERNEL = "blur2d_kernel"  # K19 (csrc/blur2d.cu), every instance
+
+
+def blur_case(a, r, mode, reps=10):
+    """K19 on `a` in load mode `mode` (its plan's, asserted) against its
+    plain version at TOL_PLAIN, with its event time and GB/s (a read once,
+    out written once)."""
+    from libhpc_tpu_torch.ops import stencil
+
+    plan = stencil.blur_plan(*a.shape, r, a.data_ptr())
+    if plan.mode != mode:
+        raise AssertionError(f"K19 {tuple(a.shape)} r {r}: plan mode "
+                             f"{plan.mode}, expected {mode}")
+
+    def call():
+        return stencil.blur2d_pallas(a, r)
+
+    err = close_plain(call(), stencil.blur2d_pallas_torch(a, r),
+                      f"K19 {tuple(a.shape)} r {r}")
+    ms = time_ms(call, reps=reps)
+    return {"mode": mode, "band_rows": plan.band_rows, "ms": ms,
+            "gb_per_s": 2 * a.numel() * 4 / ms / 1e6,
+            "max_abs_err_vs_plain": err}
+
+
+def blur_sweep(a, dev) -> dict:
+    """K19 at the radii of BLUR_SWEEP on the 8192^2 input (TMA), and at
+    r = 8 on 8191^2 (plain loads: rows of 8191 floats are no multiple of
+    16 bytes)."""
+    rec = {f"r{r}": blur_case(a, r, "tma") for r in BLUR_SWEEP}
+    odd = rand_on((DENSE_N - 1, DENSE_N - 1), dev, DENSE_SEED + 5)
+    rec["8191^2/r8"] = blur_case(odd, 8, "plain")
+    del odd
+    return rec
+
+
 def stencil_phase(dev, kernel_times, launches):
-    """K19 blur2d_pallas on 8192^2, r = 8 (the path: one launch) against
-    its plain version and a float64 box sum; the plain blur2d, the library
-    yardstick F.avg_pool2d (count_include_pad, times (2r+1)^2; checked
-    against K19 at 1e-3) and one F.conv2d with a ones weight (cuDNN, TF32
-    off) timed beside it; poisson5_apply on 2048^2
-    and poisson7_apply on 128^3 against csr_spmv of poisson2d/poisson3d."""
+    """K19 blur2d_pallas on 8192^2, r = 8 (the path: one launch, in the
+    TMA load mode) against its plain version and a float64 box sum; the
+    plain blur2d, the library yardstick F.avg_pool2d (count_include_pad,
+    times (2r+1)^2; checked against K19 at 1e-3) and one F.conv2d with a
+    ones weight (cuDNN, TF32 off) timed beside it; blur_sweep; then
+    poisson5_apply on 2048^2 and poisson7_apply on 128^3 against csr_spmv
+    of poisson2d/poisson3d."""
     import torch
 
     from libhpc_tpu_torch.bench import matrices
@@ -2159,11 +2200,16 @@ def stencil_phase(dev, kernel_times, launches):
     r = 8
     a = rand_on((DENSE_N, DENSE_N), dev, DENSE_SEED + 4)
     torch.cuda.synchronize()
-    stencil.BLUR_LAUNCHES = 0
+    stencil.BLUR_LAUNCHES = stencil.BLUR_TMA_LAUNCHES = 0
+    stencil.BLUR_PLAIN_LAUNCHES = 0
     out = stencil.blur2d_pallas(a, r)
     torch.cuda.synchronize()
     launches["stencil"] = {"blur": stencil.BLUR_LAUNCHES,
-                           "need": {"blur": 1}}
+                           "blur_tma": stencil.BLUR_TMA_LAUNCHES,
+                           "blur_plain": stencil.BLUR_PLAIN_LAUNCHES,
+                           "need": {"blur": 1, "blur_tma": 1}}
+    if stencil.BLUR_PLAIN_LAUNCHES:
+        raise AssertionError("K19 at 8192^2 took the plain loads")
     oracle = box_sum64(a, r)
     err64 = max_err(out.double(), oracle)
     if not torch.allclose(out.double(), oracle, rtol=TOL_PLAIN, atol=0):
@@ -2197,6 +2243,7 @@ def stencil_phase(dev, kernel_times, launches):
     err_conv = max_err(conv()[0, 0], out)
     t_conv = time_ms(conv, reps=10)
     del out, w, a4, got
+    sweep = blur_sweep(a, dev)
 
     def vs_csr(A, u, got, what):
         y = spmv.csr_spmv(CSR.from_scipy(A, device=dev), u.reshape(-1))
@@ -2218,7 +2265,9 @@ def stencil_phase(dev, kernel_times, launches):
     emit({"phase": "stencil", "shape": [DENSE_N, DENSE_N], "radius": r,
           **launches["stencil"], "blur2d_pallas_ms": t[0],
           "plain_ms": t[1], "max_abs_err_vs_plain": t[2],
-          "max_abs_err_vs_float64": err64, "blur2d_cumsum_ms": t_cum,
+          "max_abs_err_vs_float64": err64,
+          "bound_ms": WORK[("blur", case)][0] / PEAK_BYTES_S * 1e3,
+          "blur_sweep": sweep, "blur2d_cumsum_ms": t_cum,
           "blur2d_cumsum_max_abs_err_vs_k19": err_cum,
           "avg_pool2d_ms": LIBRARY_MS["blur"],
           "avg_pool2d_max_abs_err_vs_k19": err_pool, "conv2d_ms": t_conv,
@@ -2855,18 +2904,22 @@ def main() -> int:
     # registers and spills of the kernels redesigned last (K18's FMA
     # kernel, K13/K14's one-pass scan, the split search and merge-path
     # kernels of K9/K10/K12, the radix chunk sorts of K8/K11, K21b, the
-    # SpMV kernel of K1-K3)
+    # SpMV kernel of K1-K3, every instance of K19)
     ptxas = {fn: use for fn, use in _cuda_utils.ptxas_usage(
                  "matmul.cu", "scan.cu", "sort_merge.cu", "sort_chunk.cu",
-                 "microarch.cu", "sbell_spmv.cu").items()
+                 "microarch.cu", "sbell_spmv.cu", "blur2d.cu").items()
              if any(k in fn for k in ("fma_kernel", "scan_kernel",
                                       MERGE_KERNEL, SPLIT_KERNEL,
                                       CHUNK_KERNEL, "dma_gather_kernel",
-                                      "sbell_spmv_kernel"))}
+                                      "sbell_spmv_kernel", BLUR_KERNEL))}
     spilled = [fn for fn, use in ptxas.items()
-               if CHUNK_KERNEL in fn and use.get("spill_stores", 0)]
+               if CHUNK_KERNEL in fn and use.get("spill_stores", 0)
+               or BLUR_KERNEL in fn and (use.get("spill_stores", 0)
+                                         or use.get("spill_loads", 0))]
     if spilled:
-        raise AssertionError(f"ptxas: the chunk sort kernels spill: {spilled}")
+        raise AssertionError(f"ptxas: these kernels spill: {spilled}")
+    if not any(BLUR_KERNEL in fn for fn in ptxas):
+        raise AssertionError("ptxas: no record of K19's kernel")
     dev = torch.device("cuda")
     warm_up_card()
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),

@@ -21,20 +21,29 @@ HPCHighDimensionFlatArray:
 
 K19 is a box *sum* of radius r with a zero halo, float32. The reference
 zero-pads a copy of the input and takes cumsum differences along x, then
-y, in VMEM row tiles; the kernel reads its (tile + 2r)^2 window with
-out-of-range cells as zero (no padded copy) and adds the 2r + 1 terms of
-each window directly, x then y. So the two round differently: the
-reference's x cumsum spans a whole padded row, and its error grows with
-the width; the kernel's does not. ``tile_m`` keeps the reference's
-signature: its automatic size follows the TPU's 16 MB VMEM budget, and it
-sets no tiling on the card.
+y, in VMEM row tiles; the kernel walks column strips down the rows, brings
+each stage of rows in with the cells outside the input as zero (no padded
+copy) and adds the 2r + 1 terms of each output directly, x then y, in
+registers. So the two round differently: the reference's x cumsum spans a
+whole padded row, and its error grows with the width; the kernel's does
+not. ``tile_m`` keeps the reference's signature: its automatic size
+follows the TPU's 16 MB VMEM budget, and it sets no tiling on the card.
+
+The kernel has two load modes, both hand-written: a TMA copy of each stage
+from a tensor map of the input (which needs a 16-byte-aligned input whose
+rows are a multiple of 16 bytes), and 4-byte asynchronous copies by every
+thread for any other input. ``blur_plan`` picks the mode and sizes the
+stage from (m, n, r, data_ptr).
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the kernel
 or raise. A numpy input goes to ``device`` (default ``"cuda"``).
-``BLUR_LAUNCHES`` counts kernel launches.
+``BLUR_LAUNCHES`` counts kernel launches, ``BLUR_TMA_LAUNCHES`` and
+``BLUR_PLAIN_LAUNCHES`` those of each load mode.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -44,9 +53,11 @@ from libhpc_tpu_torch.ops._cuda_utils import (as_tensor, check_launch,
                                               current_stream_ptr,
                                               kernel_device, kernel_fn)
 
-MAX_KERNEL_RADIUS = 64   # the window of csrc/blur2d.cu fits shared memory
+MAX_KERNEL_RADIUS = 64   # a stage's box (128 + 2r columns) fits a TMA box
 
 BLUR_LAUNCHES = 0
+BLUR_TMA_LAUNCHES = 0
+BLUR_PLAIN_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -148,11 +159,40 @@ def blur2d_pallas_torch(a: torch.Tensor, radius: int = 8) -> torch.Tensor:
     return out
 
 
+# rows a block of csrc/blur2d.cu walks down: each band sums its 2r rows of
+# top halo again, so wide radii take long bands (on an H100 at 8192^2, 256
+# rows were fastest at r = 8 and 1024 at r = 16, 32 and 64: PERF.md §6)
+BAND_ROWS = 256
+BAND_ROWS_WIDE = 1024    # r > 8
+MODES = {"tma": 0, "plain": 1}
+
+
+@dataclass(frozen=True)
+class BlurPlan:
+    """How K19 runs on an (m, n) input of radius r: the load mode ("tma"
+    or "plain") and the rows a block walks down. The kernel sizes its
+    stage boxes and shared memory from r itself."""
+
+    mode: str
+    band_rows: int
+
+
+def blur_plan(m: int, n: int, radius: int, data_ptr: int) -> BlurPlan:
+    """K19's plan. TMA needs a 16-byte-aligned input whose rows are a
+    multiple of 16 bytes (n % 4 == 0), and a box's row coordinate (< m + r)
+    that fits an int32; any other input takes the plain-load mode. Radii
+    past 8 take bands of BAND_ROWS_WIDE rows."""
+    tma = (n % 4 == 0 and data_ptr % 16 == 0
+           and m <= 2 ** 31 - 1 - MAX_KERNEL_RADIUS)
+    band = BAND_ROWS if radius <= 8 else BAND_ROWS_WIDE
+    return BlurPlan("tma" if tma else "plain", band)
+
+
 def blur2d_pallas(a, radius: int = 8, tile_m: int | None = None, *,
                   device="cuda") -> torch.Tensor:
     """K19: 2-D box sum of radius r with a zero halo, float32. ``tile_m``
     is the reference's VMEM row tile and sets nothing here."""
-    global BLUR_LAUNCHES
+    global BLUR_LAUNCHES, BLUR_TMA_LAUNCHES, BLUR_PLAIN_LAUNCHES
     a = as_tensor(a, device)
     if a.ndim != 2:
         raise ValueError(f"blur2d_pallas: 2-D input, got shape "
@@ -171,13 +211,18 @@ def blur2d_pallas(a, radius: int = 8, tile_m: int | None = None, *,
     if m >= 1 << 31 or n >= 1 << 31:
         raise ValueError(f"blur2d_pallas: shape {(m, n)}; the kernel takes "
                          "dimensions < 2^31")
+    plan = blur_plan(m, n, radius, a.data_ptr())
     out = torch.empty_like(a)
     if m == 0 or n == 0:
         return out
-    fn = kernel_fn("blur2d_f32", 2, 3)
+    fn = kernel_fn("blur2d_f32", 2, 5)
     with torch.cuda.device(dev):
-        rc = fn(a.data_ptr(), out.data_ptr(), m, n, radius,
-                current_stream_ptr())
+        rc = fn(a.data_ptr(), out.data_ptr(), m, n, radius, MODES[plan.mode],
+                plan.band_rows, current_stream_ptr())
     check_launch(rc, "blur2d_f32")
     BLUR_LAUNCHES += 1
+    if plan.mode == "tma":
+        BLUR_TMA_LAUNCHES += 1
+    else:
+        BLUR_PLAIN_LAUNCHES += 1
     return out

@@ -1457,24 +1457,77 @@ def test_matmul_library_holds_hgmma(cuda_device):
     assert _cuda_utils.count_sass("HGMMA") > 0
 
 
-@pytest.mark.parametrize("r", [0, 1, 4, 8, 64])
-@pytest.mark.parametrize("shape", [(1, 1), (64, 64), (100, 200), (300, 129),
-                                   (1000, 70), (65, 4097)])
-def test_blur2d_kernel_matches_plain(cuda_device, shape, r):
+def _blur_case(a, r, mode):
+    """K19 on `a` in load mode `mode` (asserted by its counter): within
+    1e-5 of its plain version and of a float64 box sum; returns it."""
+    from libhpc_tpu_torch.ops import stencil
+
+    m, n = a.shape
+    plan = stencil.blur_plan(m, n, r, a.data_ptr())
+    assert plan.mode == mode
+    n0 = stencil.BLUR_LAUNCHES
+    n_tma, n_plain = stencil.BLUR_TMA_LAUNCHES, stencil.BLUR_PLAIN_LAUNCHES
+    got = stencil.blur2d_pallas(a, r)
+    torch.cuda.synchronize()
+    assert stencil.BLUR_LAUNCHES == n0 + 1
+    assert stencil.BLUR_TMA_LAUNCHES == n_tma + (mode == "tma")
+    assert stencil.BLUR_PLAIN_LAUNCHES == n_plain + (mode == "plain")
+    _close(got, stencil.blur2d_pallas_torch(a, r))
+    exact = stencil.blur2d_pallas_torch(a.double(), r)
+    torch.testing.assert_close(got.double(), exact, rtol=1e-5, atol=1e-5)
+    return got
+
+
+# (shape, load mode): n % 4 == 0 takes TMA (torch's allocations are
+# 16-byte aligned); m not a multiple of 32 (a stage) or 256 (a band), n not
+# a multiple of 128 (a strip); (7, 8): one stage box past both edges
+BLUR_SHAPES = [((1, 1), "plain"), ((64, 64), "tma"), ((100, 200), "tma"),
+               ((300, 129), "plain"), ((1000, 70), "plain"),
+               ((65, 4097), "plain"), ((1100, 388), "tma"),
+               ((577, 1001), "plain"), ((7, 8), "tma")]
+
+
+@pytest.mark.parametrize("r", [0, 1, 4, 8, 17, 64])
+@pytest.mark.parametrize("shape,mode", BLUR_SHAPES)
+def test_blur2d_kernel_matches_plain(cuda_device, shape, mode, r):
     """K19 adds in its plain version's order: equal to 1e-5; and within
-    1e-5 of a float64 box sum."""
+    1e-5 of a float64 box sum, in both load modes."""
     from libhpc_tpu_torch.ops import stencil
 
     g = torch.Generator(device=cuda_device).manual_seed(shape[0] + r)
     a = torch.rand(shape, device=cuda_device, generator=g)
-    n0 = stencil.BLUR_LAUNCHES
-    got = stencil.blur2d_pallas(a, r)
-    assert stencil.BLUR_LAUNCHES == n0 + 1
-    _close(got, stencil.blur2d_pallas_torch(a, r))
-    exact = stencil.blur2d_pallas_torch(a.double(), r)
-    torch.testing.assert_close(got.double(), exact, rtol=1e-5, atol=1e-5)
+    got = _blur_case(a, r, mode)
     torch.testing.assert_close(got, stencil.blur2d(a, r), rtol=1e-3,
                                atol=1e-3)
+
+
+@pytest.mark.parametrize("r", [1, 8, 64])
+def test_blur2d_kernel_misaligned_view(cuda_device, r):
+    """A view 4 bytes past an aligned allocation takes the plain loads,
+    with n % 4 == 0."""
+    m, n = 300, 256
+    g = torch.Generator(device=cuda_device).manual_seed(r)
+    a = torch.rand(m * n + 1, device=cuda_device, generator=g)[1:].view(m, n)
+    assert a.data_ptr() % 16 == 4
+    _blur_case(a, r, "plain")
+
+
+@pytest.mark.parametrize("r", [17, 31])
+def test_blur2d_kernel_runtime_radius_instance(cuda_device, r):
+    """The runtime-r instance (every r in 4..64 but 8), over several bands
+    of 1024 rows and strips, at an even and an odd strip shift."""
+    g = torch.Generator(device=cuda_device).manual_seed(r)
+    _blur_case(torch.rand((2100, 516), device=cuda_device, generator=g), r,
+               "tma")
+
+
+@pytest.mark.parametrize("n,mode", [(4, "tma"), (3, "plain")])
+def test_blur2d_kernel_past_the_grid_y_limit(cuda_device, n, mode):
+    """m = 2^22 + 65 rows: past 65,535 blocks of 64 rows, which a 2-D grid
+    of 64-row tiles refused."""
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    a = torch.rand(((1 << 22) + 65, n), device=cuda_device, generator=g)
+    _blur_case(a, 8, mode)
 
 
 def test_dense_layer_wrappers_raise_on_bad_input(cuda_device):

@@ -11,6 +11,9 @@ float64 box sum is the oracle besides the reference. HaloArray results are
 equal exactly.
 """
 
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -123,6 +126,79 @@ def test_kernel_wrapper_on_cpu_is_the_plain_version(rng, monkeypatch):
     with pytest.raises(ValueError):
         stencil.blur2d_pallas(a[0])
     assert stencil.BLUR_LAUNCHES == 0
+
+
+ALIGNED = 1 << 40   # a data_ptr on a 16-byte boundary
+BLUR_SOURCE = (pathlib.Path(stencil.__file__).resolve().parents[1] / "csrc"
+               / "blur2d.cu")
+
+
+def blur_layout(r):
+    """csrc/blur2d.cu's constants, and its box width and shared memory of a
+    block at radius r, evaluated from the source's own expressions."""
+    src = BLUR_SOURCE.read_text()
+    c = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+         for k in ("TN", "S", "NST", "MAX_RADIUS", "MAX_BOX", "MAX_SMEM")}
+    box = re.search(r"constexpr int box_width\(int r\) \{ return ([^;]+);",
+                    src).group(1)
+    smem = re.search(r"constexpr int smem_bytes\(int r, int box_w\) \{\s*"
+                     r"return ([^;]+);", src).group(1)
+    c["box_w"] = eval(box.replace("/", "//"), {}, {**c, "r": r})
+    c["smem"] = eval(smem, {}, {**c, "r": r})
+    return c
+
+
+def test_blur_plan_takes_tma_at_8192():
+    """The main path's 8192^2, r = 8 input, aligned: TMA, bands of 256
+    rows, a box of 144 columns, two blocks an SM (each block also costs
+    the SM 1 KB)."""
+    p = stencil.blur_plan(8192, 8192, 8, ALIGNED)
+    assert p.mode == "tma" and p.band_rows == 256
+    k = blur_layout(8)
+    assert k["box_w"] == 144 and k["smem"] == 96_408
+    assert 2 * (k["smem"] + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("m,n,ptr", [(8192, 8191, ALIGNED),
+                                     (8191, 8191, ALIGNED),
+                                     (8192, 8190, ALIGNED),
+                                     (8192, 8192, ALIGNED + 4),
+                                     (8192, 8192, ALIGNED + 8),
+                                     (2 ** 31 - 64, 4, ALIGNED)])
+def test_blur_plan_takes_plain_loads(m, n, ptr):
+    """n % 4 != 0 (the tensor map's row stride), a pointer off a 16-byte
+    boundary, or a box row coordinate past int32 take the plain loads."""
+    assert stencil.blur_plan(m, n, 8, ptr).mode == "plain"
+    assert stencil.blur_plan(2 ** 31 - 65, 4, 8, ALIGNED).mode == "tma"
+
+
+@pytest.mark.parametrize("r", range(stencil.MAX_KERNEL_RADIUS + 1))
+def test_blur_plan_fits_every_radius(r):
+    """Every radius the kernel takes: the box holds 128 + 2r columns in a
+    multiple of 4 floats and at most 256 (a TMA box), and a block's shared
+    memory fits the H100's 232,448 bytes; radii past 8 walk longer
+    bands."""
+    p = stencil.blur_plan(8192, 8192, r, ALIGNED)
+    assert p.band_rows == (256 if r <= 8 else 1024)
+    k = blur_layout(r)
+    assert k["MAX_RADIUS"] == stencil.MAX_KERNEL_RADIUS
+    assert k["MAX_BOX"] == 256 and k["MAX_SMEM"] == 232_448
+    assert k["TN"] + 2 * r <= k["box_w"] <= 256 and k["box_w"] % 4 == 0
+    assert k["box_w"] - (k["TN"] + 2 * r) < 4
+    assert k["smem"] <= 232_448
+
+
+def test_blur_launch_counters_stay_on_cpu(rng, monkeypatch):
+    """CPU tensors take the plain version in every load mode the plan
+    would pick: no counter moves."""
+    for name in ("BLUR_LAUNCHES", "BLUR_TMA_LAUNCHES", "BLUR_PLAIN_LAUNCHES"):
+        monkeypatch.setattr(stencil, name, 0)
+    for shape in ((64, 64), (65, 63)):
+        a = torch.from_numpy(rng.random(shape).astype(np.float32))
+        assert torch.equal(stencil.blur2d_pallas(a, 3),
+                           stencil.blur2d_pallas_torch(a, 3))
+    assert (stencil.BLUR_LAUNCHES, stencil.BLUR_TMA_LAUNCHES,
+            stencil.BLUR_PLAIN_LAUNCHES) == (0, 0, 0)
 
 
 # ---- HaloArray (tests/test_halo_array.py against the reference) -----------
