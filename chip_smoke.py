@@ -6,6 +6,10 @@ through the hand-written CUDA kernels -> CG in pane layout — at the full
 size of the two FEM matrices the repository models (cant_like: 62,000 rows,
 3.1M nnz; pwtk_like: 218,000 rows, 12.0M nnz; both synthesized from fixed
 seeds), and its CSR half (csr_spmv + CG on the shifted 1024x1024 Poisson).
+Then the solver family on that path: aggregation AMG, whose every smoothing
+sweep runs the SBELL SpMV kernel, geometric multigrid and the compensated
+reductions, and the other sparse formats (COO, BSR, BELL, the banded
+hybrid) with their SpMV and SpMM.
 Then the second entry point, sparse.auto_format, and the rest of the SpMV
 family behind it: the streaming DIA kernel and its probe on Poisson 3072^2
 (9.4M rows, 47.2M nnz), a CG solve through it, the plain DIA path, SELL on
@@ -25,12 +29,13 @@ bench/microarch.py, each kernel checked again past the 50 MB L2.
 
     python3 chip_smoke.py        # from the root of a checkout
 
-Phases, one JSON line each:
-  0 device     card, versions, kernel build seconds, the HGMMA (wgmma)
-               lines in the library's SASS (fails at 0), registers and
+Phases, one JSON line each; a phase's line also gives the seconds since
+the script started (t_s):
+  0 device     card, versions, kernel build seconds, registers and
                spills of K18's FMA kernel, of the scan kernel, of the split
                search and merge-path kernels, of the chunk sorts' radix
-               kernels (K8, K11), of K21b and of the SpMV kernel (K1-K3)
+               kernels (K8, K11), of K21b, of the SpMV kernel (K1-K3) and
+               of K19, from the ptxas reports the build kept
   1 spmv       sbell_spmv on cant/pwtk in f32 and bf16 (one fused
                launch of csrc/sbell_spmv.cu a matvec): the fused SpMV, K1
                (near only) and K3 (far only) each against its plain
@@ -148,7 +153,9 @@ Phases, one JSON line each:
                its stages and stage rows, each exactly
  28 launches   the kernel launch counts of each path, which must cover
                every call it made (the CG path: exactly one fused SpMV
-               launch a matvec, no near-only or far-only launch; the
+               launch a matvec, no near-only or far-only launch; each
+               AMG solve's, (iterations + 1) x (a V-cycle's + a fine
+               matvec's), 4 SBELL launches a level a V-cycle; the
                sort, kv sort, scan, histogram,
                dense-layer and micro-architecture paths: exactly the
                launches their sizes call for); each count is zeroed just
@@ -160,8 +167,42 @@ Phases, one JSON line each:
                profiler): device time and share of K8 / K11, of K9 / K12,
                of the split search kernel and of the torch ops left; K8
                and K11 alone on 2^26 keys
+ 29a amg       aggregation AMG (ops/multigrid_sbell.py) on the corpus's
+               spd(cant_like) (corpus.py:465-495: n_levels 3, coarse_max
+               3000; and smoothed aggregation) and on Poisson 512^2 (4
+               levels): host setup time; one V-cycle makes exactly 4 SBELL
+               launches a level (fused on a FarPane or empty far set, near
+               on FarBlocks); AMG-PCG to tol 1e-6 on b ~ N(0, 1) from seed
+               5, gated by the float64 residual (2e-5 max(|b|, 1) on cant,
+               1e-4 on Poisson) in fewer iterations than plain CG, its
+               launches zeroed just before the solve, read just after and
+               held to (iterations + 1) x (a V-cycle's + a fine
+               matvec's); the V-cycle by CUDA events (mean of 8), by graph
+               replay and its host enqueue time, a PCG iteration on the
+               host clock; the SpMV of every SBELL level of the hierarchy
+               (the containers the V-cycle launches on) against its plain
+               version, the fine one also against scipy
+ 29b multigrid mg_solve on 4095^2 and mg_solve_cc on 4096^2 (f from seed
+               0), 10 V-cycles each in float32, the residual recomputed in
+               float64 on the card within 2x of the float32 floor (the
+               float64 solution rounded to float32); a V-cycle's time
+               (events and graph replay);
+               r2 / r1 in float32 and float64; the reference tests'
+               contraction r2 < 0.35 r1 / 0.4 r1 at 1023^2 / 1024^2
+ 29c precision sum_compensated on test_precision.py's adversarial set at
+               2^26 elements and dot_compensated on 2^26 of its operands
+               joined by pairs that cancel their rounded products, against
+               float64 on the card, each error also at most plain's
+               (torch.sum) or a quarter of it (torch.dot), with times
+ 29d formats   COO, BSR (8 x 8) and BELL SpMV and csr_spmv_t on cant_like,
+               BandedHybrid on Poisson 1024^2 (natural order and RCM), and
+               the corpus's SpMM cases spmm_ell_poisson512_k64 and
+               spmm_bsr_cant_k64 (corpus.py:296-326), each against scipy
+               at 2e-3, with times beside the torch.sparse CSR product
  30 library    torch.sparse CSR matvecs of the SpMV kernels' matrices,
                the library yardstick of K1-K7 (after every profile)
+ 31 sass       the HGMMA (wgmma) lines in the library's SASS (fails at 0;
+               cuobjdump runs beside the phases before)
 
 Then a {"kernels": [...]} line (every kernel with its time, its plain
 version's, its bound -- the larger of its bytes over 3.35 TB/s and its
@@ -184,6 +225,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 TOL_PLAIN = 1e-5      # kernel vs plain version: rtol, and atol * max|y|
 TOL_GATE = 2e-3       # vs scipy: the bench's correctness gate
@@ -217,7 +259,14 @@ OPS_PEAK = {"matmul_bf16": PEAK_BF16_OPS_S, "matmul_f16": PEAK_BF16_OPS_S}
 LIBRARY_MS: dict = {}
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's record also gets the seconds since the
+    script started (`t_s`), so each phase's share of the run shows."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -387,17 +436,24 @@ def leaf_bytes(container) -> int:
                if isinstance(v := getattr(container, f.name), torch.Tensor))
 
 
-def csr_library_ms(A, dev) -> float:
-    """One torch.sparse CSR matvec of scipy matrix A on the card (the
-    library call computing the same product as K1-K7)."""
+def torch_csr(A, dev):
+    """scipy matrix A as a float32 torch.sparse CSR tensor on dev."""
     import numpy as np
     import torch
 
     A = A.tocsr().astype(np.float32)
-    At = torch.sparse_csr_tensor(
+    return torch.sparse_csr_tensor(
         torch.from_numpy(A.indptr.astype(np.int64)),
         torch.from_numpy(A.indices.astype(np.int64)),
         torch.from_numpy(A.data), size=A.shape).to(dev)
+
+
+def csr_library_ms(A, dev) -> float:
+    """One torch.sparse CSR matvec of scipy matrix A on the card (the
+    library call computing the same product as K1-K7)."""
+    import torch
+
+    At = torch_csr(A, dev)
     x = torch.linspace(-1, 1, A.shape[1], device=dev)
     return time_ms(lambda: At @ x)
 
@@ -721,6 +777,404 @@ def csr_cg_phase(dev):
     emit({"phase": "csr_cg", "system": "poisson2d(1024)+I/2", "rows":
           A.shape[0], "nnz": int(A.nnz), "iterations": it, "ms": ms,
           "residual": float(np.linalg.norm(r))})
+
+
+AMG_SEED = 5             # b ~ N(0, 1) of the corpus workload (corpus.py:485)
+# ||b - Ax|| <= gate * max(||b||, 1), in float64: the corpus's gate for
+# spd(cant_like) (corpus.py:465-495); the Poisson 512^2 system (condition
+# ~1e5) holds the float32 solution to 1e-4, its residual from tol 1e-6
+# being ~1.3e-5 on the CPU
+AMG_GATE = 2e-5
+AMG_GATE_POISSON = 1e-4
+# sum_compensated's bound of tests/test_precision.py, 1e-2 at its sum of
+# |x| (~5.0e11), relative to that sum: the double-float tree's error grows
+# with n (the reference's equals the port's bit for bit)
+SUM_BOUND_REL = 1e-2 / 5.0e11
+
+
+def level_nnz(sb) -> int:
+    """Nonzeros a level's SBELL stores (its near tiles and its far set)."""
+    import torch
+
+    from libhpc_tpu_torch.sparse.sbell import FarBlocks, FarPane
+
+    vals = [sb.vflat]
+    if isinstance(sb.far, FarBlocks):
+        vals.append(sb.far.blocks)
+    elif isinstance(sb.far, FarPane):
+        vals.append(sb.far.bt)
+    return sum(int(torch.count_nonzero(v)) for v in vals)
+
+
+def hold_level_spmv(name, li, lev, A=None):
+    """The fused SpMV of one level of the hierarchy, on the container the
+    V-cycle launches on, against its plain version (near_out_panes_torch
+    plus the plain far set) on the card; the fine level also against
+    scipy. These launches compare; they are not the main path's."""
+    import numpy as np
+    import torch
+
+    from libhpc_tpu_torch.ops import far_sbell, spmv, spmv_sbell
+    from libhpc_tpu_torch.sparse.sbell import B, W_PANES, FarPane
+
+    sb = lev.sbell
+    x = np.random.default_rng(li).standard_normal(
+        sb.n_panes * 1024).astype(np.float32)
+    x[lev.n:] = 0.0
+    x3 = spmv_sbell.x_to_panes(sb, torch.from_numpy(x).to(sb.device))
+    got = spmv_sbell.sbell_spmv_panes(sb, x3).reshape(-1, 128)
+    want = spmv_sbell.near_out_panes_torch(sb, x3)
+    if isinstance(sb.far, FarPane):
+        want = want + far_sbell.far_pane_out_panes_torch(
+            sb.far, x3, (sb.n_stripes + W_PANES - 1) * B)
+    elif sb.far is not None:
+        yfar = spmv.far_spmv(sb.far, x3[:sb.n_panes].transpose(1, 2)
+                             .reshape(-1))
+        want[:sb.n_stripes * B] += yfar.reshape(sb.n_stripes, 128, B) \
+            .transpose(1, 2).reshape(-1, 128)
+    assert_close(got, want, f"{name} level {li} SpMV vs plain", TOL_PLAIN,
+                 TOL_PLAIN)
+    if A is not None:
+        y = spmv_sbell.panes_to_x(sb, got.reshape(-1, B, 128))[:lev.n]
+        gate(y, A @ x[:lev.n], f"{name} level {li} SpMV")
+    return {"level": li, "rows": lev.n, "nnz": level_nnz(sb),
+            "n_stripes": sb.n_stripes, "n_tiles": sb.n_tiles,
+            "k_max": sb.k_max, "far": type(sb.far).__name__,
+            "max_abs_err_vs_plain": max_err(got, want)}
+
+
+def amg_system(name, A, dev, setup_kw, cg_max_iter, gate_rel):
+    """One AMG-PCG system: setup (host), the launches of one V-cycle, the
+    solve to tol 1e-6 with its launches counted and checked, plain CG, the
+    V-cycle's time, each level's SpMV against its plain version. Returns
+    its record and the launches of its solve: (fused, fused on a FarPane
+    level, near)."""
+    import numpy as np
+    import torch
+
+    from libhpc_tpu_torch.ops import multigrid_sbell as amg
+    from libhpc_tpu_torch.ops import solver, spmv_sbell
+    from libhpc_tpu_torch.sparse.sbell import FarBlocks, FarPane
+
+    t0 = time.perf_counter()
+    H = amg.amg_setup(A, device=dev, **setup_kw)
+    setup_s = time.perf_counter() - t0
+    n = A.shape[0]
+    b = np.random.default_rng(AMG_SEED).standard_normal(n) \
+        .astype(np.float32)
+    bd = torch.from_numpy(b).to(dev)
+    sb = H.levels[0].sbell
+
+    def matvec(v):
+        return spmv_sbell.sbell_spmv(sb, v)
+
+    def product(s):
+        """(fused, fused with a FarPane, near) launches of one product:
+        a FarBlocks far set takes a near launch and the plain far_spmv."""
+        if isinstance(s.far, FarBlocks):
+            return np.array([0, 0, 1])
+        return np.array([1, int(isinstance(s.far, FarPane)), 0])
+
+    per_level = H.pre - 1 + 1 + H.post
+    vcycle = per_level * sum(product(lev.sbell) for lev in H.levels)
+    spmv_sbell.SPMV_LAUNCHES = spmv_sbell.NEAR_LAUNCHES = 0
+    amg.amg_vcycle(H, bd)
+    torch.cuda.synchronize()
+    got = (spmv_sbell.SPMV_LAUNCHES, spmv_sbell.NEAR_LAUNCHES)
+    if got != (vcycle[0], vcycle[2]):
+        raise AssertionError(f"{name}: one V-cycle launched (fused, near) "
+                             f"{got}, expected {vcycle[[0, 2]]}")
+    # the main path's run: pcg_op makes it + 1 fine matvecs and it + 1
+    # V-cycles; the counts are read right after it, and nothing else adds
+    # to them
+    torch.cuda.synchronize()
+    spmv_sbell.SPMV_LAUNCHES = spmv_sbell.NEAR_LAUNCHES = 0
+    t0 = time.perf_counter()
+    x, it, _ = amg.amg_pcg(H, matvec, bd, tol=1e-6, max_iter=200)
+    torch.cuda.synchronize()
+    pcg_ms = (time.perf_counter() - t0) * 1e3
+    got = (spmv_sbell.SPMV_LAUNCHES, spmv_sbell.NEAR_LAUNCHES)
+    solve = (it + 1) * (vcycle + product(sb))
+    if got != (solve[0], solve[2]):
+        raise AssertionError(f"{name}: AMG-PCG made {it} iterations and "
+                             f"launched (fused, near) {got}, expected "
+                             f"{solve[[0, 2]]}")
+    r = np.linalg.norm(b.astype(np.float64)
+                       - A @ x.cpu().numpy().astype(np.float64))
+    limit = gate_rel * max(np.linalg.norm(b), 1.0)
+    if not (np.isfinite(r) and r <= limit and 0 < it < 200):
+        raise AssertionError(f"{name} AMG-PCG: {it} iterations, true "
+                             f"residual {r} > {limit}")
+    _, it_cg, _ = solver.cg(matvec, bd, tol=1e-6, max_iter=cg_max_iter)
+    if not it < it_cg:
+        raise AssertionError(f"{name}: AMG-PCG took {it} iterations, "
+                             f"plain CG {it_cg}")
+    vcycle_ms = time_ms(lambda: amg.amg_vcycle(H, bd), warmup=2, reps=8)
+    # the same V-cycle without the host: replayed from a CUDA graph, and
+    # the host's time to enqueue one (no sync inside)
+    vcycle_graph_ms = graph_ms(lambda: amg.amg_vcycle(H, bd), reps=8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    amg.amg_vcycle(H, bd)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    # CUPTI: the V-cycle's device time and the SBELL kernel's share (None
+    # where the profile, late in the process, lost records)
+    cupti_ms, split = device_ms(lambda: amg.amg_vcycle(H, bd), reps=8,
+                                want={"sbell_spmv_kernel":
+                                      int(vcycle[0] + vcycle[2])})
+    kernel_ms = sum(v for k, v in split.items() if "sbell_spmv_kernel" in k)
+    matvec_ms = time_ms(lambda: matvec(bd))
+    levels = [hold_level_spmv(name, li, lev, A if li == 0 else None)
+              for li, lev in enumerate(H.levels)]
+    rec = {"phase": "amg", "system": name, "rows": n, "nnz": int(A.nnz),
+           "setup_kw": setup_kw, "setup_s": setup_s,
+           "sbell_levels": levels,
+           "coarse_rows": H.coarse_inv.shape[0],
+           "vcycle_launches_fused": int(vcycle[0]),
+           "vcycle_launches_near": int(vcycle[2]),
+           "pcg_launches_fused": int(solve[0]),
+           "pcg_launches_near": int(solve[2]),
+           "pcg_iterations": it, "cg_iterations": it_cg,
+           "true_residual": float(r), "gate": float(limit),
+           "pcg_ms": pcg_ms, "pcg_ms_per_iteration": pcg_ms / it,
+           "vcycle_ms": vcycle_ms, "vcycle_graph_ms": vcycle_graph_ms,
+           "vcycle_enqueue_ms": enqueue_ms, "vcycle_cupti_ms": cupti_ms,
+           "vcycle_cupti_sbell_kernel_ms": kernel_ms if cupti_ms else None,
+           "fine_matvec_ms": matvec_ms}
+    return rec, solve
+
+
+def amg_phase(dev) -> list:
+    """Phase 29a: aggregation AMG on the SBELL kernel. Returns the
+    launches of its three solves, counted and checked: (fused, fused with
+    a FarPane, near)."""
+    import numpy as np
+
+    from libhpc_tpu_torch.bench import matrices
+
+    A = spd_from(matrices.load_or_synthesize("cant"))
+    total = np.zeros(3, np.int64)
+    for name, A_s, kw, cg_max, gate_rel in (
+            ("spd(cant_like)", A, dict(n_levels=3, coarse_max=3000), 1000,
+             AMG_GATE),
+            ("spd(cant_like) smoothed", A,
+             dict(n_levels=3, coarse_max=3000, smooth_p=True), 1000,
+             AMG_GATE),
+            ("poisson512", matrices.poisson2d(512),
+             dict(n_levels=4, coarse_max=3000), 5000, AMG_GATE_POISSON)):
+        rec, solve = amg_system(name, A_s, dev, kw, cg_max, gate_rel)
+        total += solve
+        emit(rec)
+    return [int(v) for v in total]
+
+
+def multigrid_phase(dev) -> None:
+    """Phase 29b: geometric multigrid on (2^12 - 1)^2 and 4096^2 in float32,
+    10 V-cycles each, the residual recomputed in float64 and held to the
+    float32 floor: the residual of the float64 solution (10 V-cycles in
+    float64) rounded to float32. The reference tests' contraction gates
+    (tests/test_multigrid.py:44-51, 118-124) at 1023^2 / 1024^2, where
+    float32 resolves them: at the full size one V-cycle nears the float32
+    floor (the reference gives the same r1, r2 there)."""
+    import numpy as np
+    import torch
+
+    from libhpc_tpu_torch.ops import multigrid as mg
+
+    def rhs(n):
+        return torch.from_numpy(np.random.default_rng(0).random(
+            (n, n)).astype(np.float32)).to(dev)
+
+    def norm64(f, op, u, h):
+        return float(torch.linalg.vector_norm(f.double() - op(u.double(), h)))
+
+    for name, k, solve, op, vc, bound in (
+            ("vertex", 12, mg.mg_solve, mg.poisson_op, mg.v_cycle, 0.35),
+            ("cell", 12, mg.mg_solve_cc, mg.poisson_op_cc, mg.v_cycle_cc,
+             0.4)):
+        rec = {"phase": "multigrid", "hierarchy": name}
+        for size in (k - 2, k):
+            n = (1 << size) - (name == "vertex")
+            h = 1.0 / ((n + 1) if name == "vertex" else n)
+            f = rhs(n)
+            r1, r2 = (float(solve(f, h=h, n_cycles=c)[1]) for c in (1, 2))
+            if size < k:
+                if not r2 < bound * r1:
+                    raise AssertionError(f"multigrid {name} {n}^2: r2 {r2} "
+                                         f">= {bound} r1 {r1}")
+                rec.update(gate_grid=n, gate_r1=r1, gate_r2=r2,
+                           gate_contraction=r2 / r1, bound=bound)
+                continue
+            d1, d2 = (float(solve(f.double(), h=h, n_cycles=c)[1])
+                      for c in (1, 2))
+            out = {}
+
+            def run():
+                out["u"], out["res"] = solve(f, h=h, n_cycles=10)
+
+            solve_ms = wall_ms(run, reps=2)
+            res64 = norm64(f, op, out["u"], h)
+            u64, _ = solve(f.double(), h=h, n_cycles=10)
+            floor = norm64(f, op, u64.float(), h)
+            if not (np.isfinite(res64) and res64 <= 2.0 * floor):
+                raise AssertionError(f"multigrid {name} {n}^2: residual "
+                                     f"{res64} after 10 cycles, float32 "
+                                     f"floor {floor}")
+            z = torch.zeros_like(f)
+            vcycle_ms = time_ms(lambda: vc(z, f, h), warmup=1, reps=5)
+            vcycle_graph_ms = graph_ms(lambda: vc(z, f, h), reps=5)
+            rec.update(grid=n, r1=r1, r2=r2, contraction=r2 / r1,
+                       r1_f64=d1, r2_f64=d2, contraction_f64=d2 / d1,
+                       res_norm_f32=float(out["res"]), res_norm_f64=res64,
+                       float32_floor_f64=floor,
+                       res_rel_f64=res64 / float(torch.linalg.vector_norm(
+                           f.double())),
+                       solve_10_cycles_ms=solve_ms, vcycle_ms=vcycle_ms,
+                       vcycle_graph_ms=vcycle_graph_ms)
+        emit(rec)
+
+
+def precision_phase(dev) -> None:
+    """Phase 29c: compensated sum and dot on 2^26 elements against a
+    float64 sum on the card (tests/test_precision.py's bounds)."""
+    import torch
+
+    from libhpc_tpu_torch.ops import precision as pr
+
+    n = 1 << 26
+    g = torch.Generator(device=dev).manual_seed(1234)
+    m = n // 3
+    big = torch.rand(m, generator=g, device=dev) * 1e7
+    x = torch.cat([big, -big, torch.rand(n - 2 * m, generator=g,
+                                         device=dev)])
+    x = x[torch.randperm(n, generator=g, device=dev)]
+    del big
+    exact = float(x.double().sum())
+    sum_bound = SUM_BOUND_REL * float(x.double().abs().sum())
+    comp = float(pr.sum_compensated(x))
+    plain = float(torch.sum(x))
+    if not (abs(comp - exact) <= abs(plain - exact)
+            and abs(comp - exact) <= sum_bound):
+        raise AssertionError(f"sum_compensated: error {comp - exact} (bound "
+                             f"{sum_bound}), plain {plain - exact}")
+    sum_ms = time_ms(lambda: pr.sum_compensated(x), warmup=1, reps=5)
+    plain_sum_ms = time_ms(lambda: torch.sum(x))
+    # tests/test_precision.py's dot operands (|a| < 1e4, |c| < 1e-4), each
+    # pair (a, c) kept where float32 rounds a * c down and joined by the
+    # pair (-fl(a * c), 1): the rounded products cancel, and the exact dot
+    # is the sum of the products' rounding errors, which two_prod carries
+    # and a plain float32 dot loses. A dot without two_prod's error term
+    # misses it by 100%, one without the tree's lo half by ~1%.
+    half = n // 2
+    a = (torch.rand(n + half, generator=g, device=dev) * 2 - 1) * 1e4
+    c = (torch.rand(n + half, generator=g, device=dev) * 2 - 1) * 1e-4
+    down = a.double() * c.double() > (a * c).double()
+    a, c = a[down][:half], c[down][:half]
+    if a.numel() < half:
+        raise AssertionError(f"dot operands: {a.numel()} of {half} pairs")
+    a, c = torch.cat([a, -(a * c)]), torch.cat([c, torch.ones_like(c)])
+    order = torch.randperm(n, generator=g, device=dev)
+    a, c = a[order], c[order]
+    del down, order
+    exact_d = float(torch.dot(a.double(), c.double()))
+    comp_d = float(pr.dot_compensated(a, c))
+    plain_d = float(torch.dot(a, c))
+    rel = abs(comp_d - exact_d) / max(abs(exact_d), 1e-30)
+    plain_rel = abs(plain_d - exact_d) / max(abs(exact_d), 1e-30)
+    if not (rel < 1e-6 and rel <= plain_rel / 4):
+        raise AssertionError(f"dot_compensated: relative error {rel} (bound "
+                             f"1e-6), plain {plain_rel}")
+    dot_ms = time_ms(lambda: pr.dot_compensated(a, c), warmup=1, reps=5)
+    plain_dot_ms = time_ms(lambda: torch.dot(a, c))
+    emit({"phase": "precision", "n": n,
+          "sum_abs_err": abs(comp - exact), "plain_sum_abs_err":
+          abs(plain - exact), "sum_bound": sum_bound,
+          "dot_exact": exact_d, "dot_rel_err": rel,
+          "plain_dot_rel_err": plain_rel,
+          "dot_bound": 1e-6, "sum_compensated_ms": sum_ms,
+          "torch_sum_ms": plain_sum_ms, "dot_compensated_ms": dot_ms,
+          "torch_dot_ms": plain_dot_ms})
+
+
+def formats_phase(dev) -> None:
+    """Phase 29d: COO, BSR (8 x 8) and BELL SpMV and csr_spmv_t on
+    cant_like; BandedHybrid on Poisson 1024^2; the corpus's two SpMM cases
+    (corpus.py:296-326, K = 64). Each against scipy at 2e-3, with times
+    beside the torch.sparse CSR product's."""
+    import numpy as np
+    import torch
+
+    from libhpc_tpu_torch.bench import matrices
+    from libhpc_tpu_torch.ops import spmm, spmv
+    from libhpc_tpu_torch.sparse import BELL, BSR, COO, CSR, ELL
+    from libhpc_tpu_torch.sparse import BandedHybrid
+
+    A = matrices.load_or_synthesize("cant")
+    m, n = A.shape
+    x = np.linspace(-1.0, 1.0, n, dtype=np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    At = torch_csr(A, dev)
+    lib_mv = time_ms(lambda: At @ xd)
+
+    def case(name, fn, want, library_ms, **extra):
+        y = fn()
+        gate(y, want, name)
+        emit({"phase": "formats", "case": name, "ms": time_ms(fn),
+              "torch_sparse_csr_ms": library_ms,
+              "max_abs_err_vs_scipy": float(np.abs(y.cpu().numpy()
+                                                   - want).max()),
+              **extra})
+
+    t0 = time.perf_counter()
+    coo = COO.from_scipy(A, device=dev)
+    case("coo_spmv_cant", lambda: spmv.coo_spmv(coo, xd), A @ x, lib_mv,
+         build_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    bsr = BSR.from_scipy(A, block=8, device=dev)
+    build_bsr = time.perf_counter() - t0
+    xp = torch.nn.functional.pad(xd, (0, bsr.shape[1] - n))
+    case("bsr_spmv_cant", lambda: spmv.bsr_spmv(bsr, xp)[:m], A @ x, lib_mv,
+         build_s=build_bsr, nblocks=bsr.nblocks,
+         fill_ratio=bsr.fill_ratio())
+    t0 = time.perf_counter()
+    bell = BELL.from_bsr(bsr)
+    case("bell_spmv_cant", lambda: spmv.bell_spmv(bell, xp)[:m], A @ x,
+         lib_mv, build_s=time.perf_counter() - t0, K=bell.K,
+         fill_ratio=bell.fill_ratio())
+    csr = CSR.from_scipy(A, device=dev)
+    yv = np.linspace(1.0, -1.0, m, dtype=np.float32)
+    ATt = torch_csr(A.T, dev)
+    yd = torch.from_numpy(yv).to(dev)
+    case("csr_spmv_t_cant", lambda: spmv.csr_spmv_t(csr, yd), A.T @ yv,
+         time_ms(lambda: ATt @ yd))
+    Ap = matrices.poisson2d(1024)
+    xq = np.linspace(-1.0, 1.0, Ap.shape[1], dtype=np.float32)
+    xqd = torch.from_numpy(xq).to(dev)
+    Apt = torch_csr(Ap, dev)
+    lib_p = time_ms(lambda: Apt @ xqd)
+    for rcm in (False, True):
+        t0 = time.perf_counter()
+        hyb = BandedHybrid.from_scipy(Ap, rcm=rcm, device=dev)
+        case(f"hybrid_spmv_poisson1024_rcm{int(rcm)}",
+             lambda: spmv.hybrid_spmv(hyb, xqd), Ap @ xq, lib_p,
+             build_s=time.perf_counter() - t0, coverage=hyb.coverage,
+             band_diags=hyb.band.ndiags, rest_k=hyb.rest.k)
+    # SpMM, K = 64 (corpus.py:296-326)
+    rng = np.random.default_rng(7)
+    A5 = matrices.poisson2d(512)
+    ell = ELL.from_csr(CSR.from_scipy(A5, device="cpu")).to(dev)
+    X = rng.standard_normal((A5.shape[1], 64)).astype(np.float32)
+    Xd = torch.from_numpy(X).to(dev)
+    A5t = torch_csr(A5, dev)
+    case("spmm_ell_poisson512_k64", lambda: spmm.ell_spmm(ell, Xd), A5 @ X,
+         time_ms(lambda: A5t @ Xd))
+    Xu = rng.standard_normal((bsr.shape[1], 64)).astype(np.float32)
+    Xud = torch.from_numpy(Xu).to(dev)
+    Aup = A.copy()
+    Aup.resize(bsr.shape)
+    Aupt = torch_csr(Aup, dev)
+    case("spmm_bsr_cant_k64", lambda: spmm.bsr_spmm(bsr, Xud), Aup @ Xu,
+         time_ms(lambda: Aupt @ Xud))
 
 
 def hold(kind, case, kernel, plain, kernel_times):
@@ -2713,6 +3167,7 @@ def run(dev):
     del sb_cant, A_cant
 
     family = {}
+
     A3 = matrices.poisson2d(3072)
     dia_phase(A3, dev, kernel_times, family)
     dia_cg_phase(A3, dev, family)
@@ -2742,11 +3197,20 @@ def run(dev):
     hbm_phase(dev)
     overlap_phase(dev, kernel_times, family)
     microarch_phase(dev, kernel_times, family)
-    check_family_launches(family)
     sort_split_phase()
+    # the solver family and the other formats, after every profile of the
+    # phases before (the formats phase calls torch.sparse, cuSPARSE): the
+    # AMG solves' checked launches join the main path's K1-K3 counts
+    amg_fused, amg_far, amg_near = amg_phase(dev)
+    multigrid_phase(dev)
+    precision_phase(dev)
+    formats_phase(dev)
+    check_family_launches(family)
     library_phase(dev)
     emit({"phase": "launches", "spmv": spmv, "near": near, "far": far,
-          "matvecs": matvecs, **family})
+          "matvecs": matvecs, "amg_pcg_fused": amg_fused,
+          "amg_pcg_fused_far_pane": amg_far, "amg_pcg_near": amg_near,
+          **family})
     torch.cuda.synchronize()
 
     def entry(kind, name, source, replaces, launches, cases):
@@ -2786,16 +3250,20 @@ def run(dev):
     cant = ["cant/float32"]
     return {"kernels": [
         # K1/K2 and K3 are modes of one kernel; the main path runs their
-        # functions fused, one launch a matvec: each row counts those
-        # launches, and times its mode alone
+        # functions fused, one launch a matvec: each row counts the
+        # launches that ran its function (the CG path's and the AMG
+        # solves'; K3's only where a FarPane was fused in), and times its
+        # mode alone
         entry("near", "sbell_near", spmv_src,
-              "libhpc_tpu/ops/spmv_pallas.py:59", spmv, cant),
+              "libhpc_tpu/ops/spmv_pallas.py:59",
+              spmv + amg_fused + amg_near, cant),
         entry("near", "sbell_near_ranged", spmv_src,
-              "libhpc_tpu/ops/spmv_pallas.py:92", spmv, cant),
+              "libhpc_tpu/ops/spmv_pallas.py:92",
+              spmv + amg_fused + amg_near, cant),
         entry("far", "far_pane", spmv_src,
-              "libhpc_tpu/ops/far_pallas.py:33", spmv, cant),
+              "libhpc_tpu/ops/far_pallas.py:33", spmv + amg_far, cant),
         entry("spmv", "sbell_spmv_fused", spmv_src,
-              "libhpc_tpu/ops/spmv_pallas.py:59", spmv, cant),
+              "libhpc_tpu/ops/spmv_pallas.py:59", spmv + amg_fused, cant),
         entry("dia", "dia", dia_src, "libhpc_tpu/ops/dia_pallas.py:100",
               family["dia"]["dia"] + family["dia_cg"]["dia"],
               ["poisson3072"]),
@@ -2897,14 +3365,21 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda_utils.kernel_lib()
     build_s = time.perf_counter() - t0
-    hgmma = _cuda_utils.count_sass("HGMMA")
-    if hgmma == 0:
-        raise AssertionError("the kernel library's SASS holds no HGMMA: "
-                             "K18's half-width path runs no wgmma")
+    # cuobjdump disassembles the whole library (16 s on the H100 machine's
+    # host): it runs beside the phases, and its count is checked after them
+    sass = ThreadPoolExecutor(1)
+
+    def count_hgmma():
+        t0 = time.perf_counter()
+        return _cuda_utils.count_sass("HGMMA"), time.perf_counter() - t0
+
+    hgmma_lines = sass.submit(count_hgmma)
     # registers and spills of the kernels redesigned last (K18's FMA
     # kernel, K13/K14's one-pass scan, the split search and merge-path
     # kernels of K9/K10/K12, the radix chunk sorts of K8/K11, K21b, the
-    # SpMV kernel of K1-K3, every instance of K19)
+    # SpMV kernel of K1-K3, every instance of K19), from the reports the
+    # build kept
+    t0 = time.perf_counter()
     ptxas = {fn: use for fn, use in _cuda_utils.ptxas_usage(
                  "matmul.cu", "scan.cu", "sort_merge.cu", "sort_chunk.cu",
                  "microarch.cu", "sbell_spmv.cu", "blur2d.cu").items()
@@ -2916,6 +3391,7 @@ def main() -> int:
                if CHUNK_KERNEL in fn and use.get("spill_stores", 0)
                or BLUR_KERNEL in fn and (use.get("spill_stores", 0)
                                          or use.get("spill_loads", 0))]
+    ptxas_s = time.perf_counter() - t0
     if spilled:
         raise AssertionError(f"ptxas: these kernels spill: {spilled}")
     if not any(BLUR_KERNEL in fn for fn in ptxas):
@@ -2925,9 +3401,15 @@ def main() -> int:
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build_s,
-          "library": str(_cuda_utils.library_path().name),
-          "hgmma_sass_lines": hgmma, "ptxas": ptxas})
+          "ptxas_s": ptxas_s,
+          "library": str(_cuda_utils.library_path().name), "ptxas": ptxas})
     kernels = run(dev)
+    hgmma, sass_s = hgmma_lines.result()
+    sass.shutdown()
+    if hgmma == 0:
+        raise AssertionError("the kernel library's SASS holds no HGMMA: "
+                             "K18's half-width path runs no wgmma")
+    emit({"phase": "sass", "hgmma_sass_lines": hgmma, "cuobjdump_s": sass_s})
     emit(kernels)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

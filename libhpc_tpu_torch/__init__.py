@@ -16,18 +16,28 @@ its key-value form (argsort), the radix module, the histogram and the
 exclusive scans; the dense-array, stencil and sparse-grid layer: row
 sums, the tiled transpose, the tiled matmul, the ghost-cell stencils with
 the halo box blur, Morton codes and the hierarchical sparse grids; and the
-micro-architecture suites with the timing harness.
+micro-architecture suites with the timing harness; the solvers on the
+main path: aggregation AMG on the SBELL kernel, geometric multigrid and
+the compensated reductions; and the other sparse formats: COO, BSR,
+BELL and the banded hybrid with their SpMV and SpMM.
 
 Entry points run on the card: builders build on the host and move their
 containers to ``device`` (default ``"cuda"``), and a numpy input to an op
 goes to ``device``; a torch tensor stays on its own device, so a CPU
 tensor or ``device="cpu"`` asks for the CPU.
 
-- ``libhpc_tpu_torch.sparse`` — ``CSR``, ``ELL``, ``DIA``, ``SBELL`` (with
-  its ``FarPane`` and ``FarBlocks`` far sets), ``auto_format``, and the
-  sparse grids ``BlockGrid`` and ``NestedGrid``.
+- ``libhpc_tpu_torch.sparse`` — ``COO``, ``CSR``, ``BSR``, ``ELL``,
+  ``DIA``, ``BandedHybrid``, ``BELL``, ``SBELL`` (with its ``FarPane`` and
+  ``FarBlocks`` far sets), ``auto_format``, and the sparse grids
+  ``BlockGrid`` and ``NestedGrid``.
 - ``libhpc_tpu_torch.ops``    — ``spmv`` (``csr_spmv``, ``ell_spmv``,
-  ``far_spmv``, ``dia_spmv``, ``dia_spmv_t``), the kernel wrappers
+  ``bsr_spmv``, ``bell_spmv``, ``far_spmv``, ``coo_spmv``, ``dia_spmv``,
+  ``csr_spmv_t``, ``dia_spmv_t``, ``hybrid_spmv``), ``spmm``
+  (``csr_spmm``, ``ell_spmm``, ``bsr_spmm``), ``multigrid`` (the
+  vertex- and cell-centred V-cycles, ``mg_solve``, ``mg_solve_cc``),
+  ``multigrid_sbell`` (``amg_setup``, ``amg_vcycle``, ``amg_pcg``),
+  ``precision`` (``sum_compensated``, ``dot_compensated``,
+  ``norm2_compensated``), the kernel wrappers
   ``spmv_sbell``, ``far_sbell``, ``spmv_dia`` (``DiaPallas``),
   ``spmv_sell`` (``SELL``, ``SELLSplit``) and ``sellp`` (``SELLP``),
   ``solver``, ``sort_merge`` (``merge_sort_u32``), ``sort_merge_kv``
@@ -42,6 +52,8 @@ tensor or ``device="cpu"`` asks for the CPU.
   ``poisson5_apply``, ``poisson7_apply`` and the ``*_halo`` stencils).
 - ``libhpc_tpu_torch.containers`` — ``HaloArray``, the ghost-cell array.
 - ``libhpc_tpu_torch.utils``  — Morton codes (``utils.morton``).
+- ``libhpc_tpu_torch.examples`` — ``amg_solve``, ``poisson_cg`` and
+  ``multigrid_demo``, run as ``python -m libhpc_tpu_torch.examples.<name>``.
 - ``libhpc_tpu_torch.bench``  — the deterministic matrix generators, the
   timing harness (``bench.harness``: ``time_iterated`` and the
   device-memory probes), the overlap sweep (``bench.overlap_chip``) and
@@ -50,7 +62,8 @@ tensor or ``device="cpu"`` asks for the CPU.
 
 __version__ = "0.1.0"
 
-from libhpc_tpu_torch.ops import spmv, solver  # noqa: F401
+from libhpc_tpu_torch.ops import spmv, spmm, solver  # noqa: F401
+from libhpc_tpu_torch.ops import multigrid, precision  # noqa: F401
 from libhpc_tpu_torch.ops import spmv_sbell, far_sbell  # noqa: F401
 from libhpc_tpu_torch.ops import spmv_dia, spmv_sell, sellp  # noqa: F401
 from libhpc_tpu_torch.ops import histogram, sort, sort_merge  # noqa: F401
@@ -59,6 +72,8 @@ from libhpc_tpu_torch.ops import reduce, transpose, matmul  # noqa: F401
 from libhpc_tpu_torch.ops import stencil  # noqa: F401
 from libhpc_tpu_torch.containers import HaloArray  # noqa: F401
 from libhpc_tpu_torch.sparse.csr import CSR  # noqa: F401
+from libhpc_tpu_torch.sparse.coo import COO  # noqa: F401
+from libhpc_tpu_torch.sparse.bsr import BSR  # noqa: F401
 from libhpc_tpu_torch.sparse.ell import ELL  # noqa: F401
 from libhpc_tpu_torch.sparse.dia import DIA  # noqa: F401
 from libhpc_tpu_torch.sparse.sbell import SBELL  # noqa: F401

@@ -44,9 +44,12 @@ def block_random(n_block_rows: int, block: int = 8,
     long-range couplings). Stand-in generator for cant/pwtk structure."""
     rs = np.random.RandomState(seed)
     n = n_block_rows * block
-    rows, cols, vals = [], [], []
     n_far_rows = max(1, int(far_fraction * n_block_rows * blocks_per_row))
     far_rows = set(rs.randint(0, n_block_rows, size=n_far_rows))
+    # the reference's draws in the reference's order (a row's offsets, its
+    # far column, then one randn(b*b) a block, which equal one randn over
+    # the row's blocks); the entries are laid out at once afterwards
+    bcols, vals = [], []
     for br in range(n_block_rows):
         near = br + rs.randint(-half_band, half_band + 1,
                                size=blocks_per_row - 1)
@@ -54,15 +57,18 @@ def block_random(n_block_rows: int, block: int = 8,
                  if br in far_rows else np.empty(0, np.int64))
         bcs = np.unique(np.clip(np.concatenate([near, extra, [br]]), 0,
                                 n_block_rows - 1))
-        for bc in bcs:
-            r0, c0 = br * block, bc * block
-            rr, cc = np.meshgrid(np.arange(block), np.arange(block),
-                                 indexing="ij")
-            rows.append((r0 + rr).ravel())
-            cols.append((c0 + cc).ravel())
-            vals.append(rs.randn(block * block).astype(dtype))
+        bcols.append(bcs)
+        vals.append(rs.randn(bcs.size * block * block).astype(dtype))
+    bc = np.concatenate(bcols).astype(np.int64)
+    br = np.repeat(np.arange(n_block_rows, dtype=np.int64),
+                   [c.size for c in bcols])
+    # entry (i, j) of a block at i * block + j, as meshgrid(..., "ij")
+    ii = np.repeat(np.arange(block), block)
+    jj = np.tile(np.arange(block), block)
     A = sps.coo_matrix(
-        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        (np.concatenate(vals),
+         (((br * block)[:, None] + ii).ravel(),
+          ((bc * block)[:, None] + jj).ravel())),
         shape=(n, n),
     ).tocsr()
     A.sum_duplicates()

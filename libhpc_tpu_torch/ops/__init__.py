@@ -1,4 +1,5 @@
-from libhpc_tpu_torch.ops import spmv, solver  # noqa: F401
+from libhpc_tpu_torch.ops import spmv, spmm, solver  # noqa: F401
+from libhpc_tpu_torch.ops import multigrid, precision  # noqa: F401
 from libhpc_tpu_torch.ops import spmv_sbell, far_sbell  # noqa: F401
 from libhpc_tpu_torch.ops import spmv_dia, spmv_sell, sellp  # noqa: F401
 from libhpc_tpu_torch.ops import histogram, sort, sort_merge  # noqa: F401

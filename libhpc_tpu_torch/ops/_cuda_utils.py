@@ -10,7 +10,7 @@ what a Hopper kernel needs around it:
   the headers they share (``csrc/*.cuh``) and the flags; it is loaded with
   ctypes. Importing this module builds nothing and touches no CUDA state.
 - ``ptxas_usage``: each kernel's registers and spills, from ``nvcc -Xptxas
-  -v``.
+  -v`` (the build keeps each source's report beside the library).
 - ``kernel_fn``: a C entry point of that library with its argtypes set
   (every pointer and the stream as c_void_p, sizes as c_int).
 - ``check_launch``: raises when an entry point returns a CUDA error.
@@ -40,6 +40,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+PTXAS_FLAGS = ("-Xptxas", "-v")   # registers and spills, on stderr
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 
@@ -76,18 +77,25 @@ def _sources() -> list[Path]:
 def library_path() -> Path:
     """Where the kernel library for the current sources, headers and flags
     lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + PTXAS_FLAGS
+                                + LINK_FLAGS).encode())
     for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libhpc_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _ptxas_report(so: Path, source: str) -> Path:
+    """Where the build of library `so` keeps ptxas's report of `source`."""
+    return so.with_name(f"{so.stem}.{Path(source).stem}.ptxas.txt")
+
+
 def build_library() -> Path:
     """Compile csrc/*.cu into the keyed shared library unless it exists:
-    one nvcc per source, all started together, then one link. The build
-    writes temporary files and renames the library into place, so
-    concurrent builders never load a half-written library."""
+    one nvcc per source, all started together, then one link; each
+    source's ptxas report is kept beside the library. The build writes
+    temporary files and renames the reports, then the library, into place,
+    so concurrent builders never load a half-written library."""
     so = library_path()
     if so.exists():
         return so
@@ -100,13 +108,15 @@ def build_library() -> Path:
         for src in _sources():
             obj = BUILD_DIR / f"{tag}.{src.stem}.o"
             jobs.append((src, obj, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                [nvcc, *NVCC_FLAGS, *PTXAS_FLAGS, "-c", "-o", str(obj),
+                 str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        errors = []
+        errors, reports = [], []
         for src, _, proc in jobs:
             _, err = proc.communicate(timeout=600)
             if proc.returncode != 0:
                 errors.append(f"{src.name} ({proc.returncode}):\n{err}")
+            reports.append((_ptxas_report(so, src.name), err))
         if errors:
             raise RuntimeError("nvcc failed: " + "\n".join(errors))
         res = subprocess.run(
@@ -115,6 +125,10 @@ def build_library() -> Path:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{res.stderr}")
+        for path, err in reports:
+            part = path.with_name(f"{tag}.{path.name}")
+            part.write_text(err)
+            os.replace(part, path)
         os.replace(tmp, so)
     finally:
         for _, obj, proc in jobs:
@@ -138,24 +152,19 @@ def count_sass(opcode: str) -> int:
 
 def ptxas_usage(*sources: str) -> dict:
     """Registers and spilled bytes of every kernel of the named csrc/
-    sources, as ``nvcc -Xptxas -v`` reports them (one nvcc per source, all
-    started together, objects discarded): mangled kernel name ->
+    sources, as ``nvcc -Xptxas -v`` reports them: from the reports the
+    build of the current library kept, or, where one is missing, from a
+    compile of its own (one nvcc per source, all started together, objects
+    discarded): mangled kernel name ->
     {"registers", "spill_stores", "spill_loads"}."""
-    BUILD_DIR.mkdir(exist_ok=True)
-    nvcc = find_nvcc()
-    jobs = []
-    for name in sources:
-        obj = BUILD_DIR / f"ptxas.{os.getpid()}.{Path(name).stem}.o"
-        jobs.append((obj, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
-             str(CSRC_DIR / name)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    so = library_path()
+    kept = [_ptxas_report(so, name) for name in sources]
+    if all(path.exists() for path in kept):
+        reports = [path.read_text() for path in kept]
+    else:
+        reports = _compile_reports(sources)
     usage, fn = {}, None
-    for obj, proc in jobs:
-        _, err = proc.communicate(timeout=600)
-        obj.unlink(missing_ok=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc -Xptxas -v failed:\n{err}")
+    for err in reports:
         for line in err.splitlines():
             m = re.search(r"(?:entry function '|Function properties for )"
                           r"([^' ]+)", line)
@@ -171,6 +180,27 @@ def ptxas_usage(*sources: str) -> dict:
             if m and fn:
                 usage[fn]["registers"] = int(m.group(1))
     return usage
+
+
+def _compile_reports(sources) -> list[str]:
+    """ptxas's report of each named csrc/ source from an nvcc of its own."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    nvcc = find_nvcc()
+    jobs = []
+    for name in sources:
+        obj = BUILD_DIR / f"ptxas.{os.getpid()}.{Path(name).stem}.o"
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *PTXAS_FLAGS, "-c", "-o", str(obj),
+             str(CSRC_DIR / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    reports = []
+    for obj, proc in jobs:
+        _, err = proc.communicate(timeout=600)
+        obj.unlink(missing_ok=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed:\n{err}")
+        reports.append(err)
+    return reports
 
 
 _LIB: ctypes.CDLL | None = None

@@ -1,10 +1,14 @@
 """Sparse matrix-vector products computed with plain torch ops.
 
-Port of ``libhpc_tpu/ops/spmv.py`` (``csr_spmv``, ``ell_spmv``,
-``far_spmv``, ``MAX_DIA_OFFSETS``, ``_guard_dia``, ``dia_spmv``,
-``dia_spmv_t``). The reference computes these in XLA, not Pallas, so the
-port computes them with torch ops (gather, index_add, slice adds). BSR,
-BELL, COO, hybrid and ``csr_spmv_t`` come with their slices.
+Port of ``libhpc_tpu/ops/spmv.py``, every function of it: ``csr_spmv``,
+``ell_spmv``, ``bsr_spmv``, ``bell_spmv``, ``far_spmv``, ``coo_spmv``,
+``MAX_DIA_OFFSETS``, ``_guard_dia``, ``dia_spmv``, ``csr_spmv_t``,
+``dia_spmv_t`` and ``hybrid_spmv``. The reference computes these in XLA,
+not Pallas, so the port computes them with torch ops (gather, index_add,
+slice adds, batched products). Where the reference reduces float32 on the
+MXU at ``precision="highest"``, the port's float32 products run in full
+float32: the port sets no TF32 flag, and PyTorch leaves TF32 off for
+matmuls by default.
 """
 
 from __future__ import annotations
@@ -24,6 +28,29 @@ def ell_spmv(ell, x: torch.Tensor) -> torch.Tensor:
     return (ell.vals * x[ell.cols.long()]).sum(dim=1)
 
 
+def bsr_spmv(bsr, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for BSR A: batched b x b block-dots, then a block-row
+    segment sum."""
+    b = bsr.b
+    gx = x.reshape(-1, b)[bsr.indices.long()]              # (nblocks, b)
+    prod = torch.bmm(bsr.blocks, gx[:, :, None])[:, :, 0]  # nij,nj->ni
+    yb = torch.zeros((bsr.n_block_rows, b), dtype=prod.dtype,
+                     device=prod.device)
+    yb.index_add_(0, bsr.block_row_of_block().long(), prod)
+    return yb.reshape(-1)
+
+
+def bell_spmv(bell, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for BELL A: one row-gather of x a block and a dense-axis
+    contraction over (K, j); padding blocks multiply to zero."""
+    nbr, K, b, _ = bell.blocks.shape
+    g = x.reshape(-1, b)[bell.indices.long()]              # (nbr, K, b)
+    # rkij,rkj->ri: a block-dot a stored block, then a sum over K
+    prod = torch.bmm(bell.blocks.reshape(nbr * K, b, b),
+                     g.reshape(nbr * K, b, 1))
+    return prod.reshape(nbr, K, b).sum(dim=1).reshape(-1)
+
+
 def far_spmv(far, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for a FarBlocks block-COO set (sparse/sbell.py): one x
     row-gather per stored block and a scatter-add over the touched
@@ -34,6 +61,12 @@ def far_spmv(far, x: torch.Tensor) -> torch.Tensor:
     yb = (far.blocks.float() * g[:, None, :]).sum(dim=-1)   # nij,nj->ni
     out = torch.zeros((nbr, b), dtype=torch.float32, device=x.device)
     return out.index_add_(0, far.rows.long(), yb).reshape(-1)
+
+
+def coo_spmv(coo, x: torch.Tensor) -> torch.Tensor:
+    prod = coo.data * x[coo.col.long()]
+    out = torch.zeros(coo.shape[0], dtype=prod.dtype, device=prod.device)
+    return out.index_add_(0, coo.row.long(), prod)
 
 
 # the reference unrolls one slice+add pair per diagonal into its program;
@@ -71,6 +104,14 @@ def dia_spmv(dia, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def csr_spmv_t(csr, y: torch.Tensor) -> torch.Tensor:
+    """x = A^T @ y for CSR A (the CSC view): the products scatter over the
+    columns."""
+    prod = csr.data * y[csr.row_of_nnz().long()]
+    out = torch.zeros(csr.shape[1], dtype=prod.dtype, device=prod.device)
+    return out.index_add_(0, csr.indices.long(), prod)
+
+
 def dia_spmv_t(dia, y: torch.Tensor) -> torch.Tensor:
     """x = A^T @ y for DIA A: the same diagonals read the other way. The
     adds go into slices of x in place (x is a fresh tensor of data's
@@ -85,3 +126,11 @@ def dia_spmv_t(dia, y: torch.Tensor) -> torch.Tensor:
             continue
         x[j0:j1] += dia.data[d, j0:j1] * y[j0 - o:j1 - o]
     return x
+
+
+def hybrid_spmv(hyb, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for BandedHybrid A: permute, DIA band + ELL remainder,
+    unpermute."""
+    xp = x[hyb.perm.long()]
+    yp = dia_spmv(hyb.band, xp) + ell_spmv(hyb.rest, xp)
+    return yp[hyb.iperm.long()]

@@ -5,7 +5,8 @@ marked ``metadata=dict(static=True)``. The port keeps the same split. This
 mixin gives every container the three operations the pytree machinery gave
 the reference for free:
 
-- ``to(device)``   moves every tensor leaf (nested containers included);
+- ``to(device)``   moves every tensor leaf (nested containers, and tuples
+                   of them, included);
 - ``from_numpy``   builds the container from the reference's leaves as numpy
                    arrays (``np.asarray(leaf)``), so both packages compute on
                    identical data;
@@ -69,6 +70,8 @@ class TensorLeaves:
             v = getattr(self, f.name)
             if isinstance(v, (torch.Tensor, TensorLeaves)):
                 moved[f.name] = v.to(device)
+            elif isinstance(v, tuple):
+                moved[f.name] = tuple(e.to(device) for e in v)
         return dataclasses.replace(self, **moved)
 
     @classmethod
@@ -90,6 +93,26 @@ class TensorLeaves:
                 out[f.name] = tensor_to_numpy(v)
         return out
 
+    def tree_to_numpy(self) -> dict:
+        """to_numpy that reaches into nested containers, tuples of them and
+        None fields: {field: numpy array, nested dict, tuple or None}."""
+        out = {}
+        for f in dataclasses.fields(self):
+            if _is_static(f) or _is_derived(f):
+                continue
+            out[f.name] = _tree(getattr(self, f.name))
+        return out
+
     def statics(self) -> dict:
         return {f.name: getattr(self, f.name)
                 for f in dataclasses.fields(self) if _is_static(f)}
+
+
+def _tree(v):
+    if isinstance(v, torch.Tensor):
+        return tensor_to_numpy(v)
+    if isinstance(v, TensorLeaves):
+        return v.tree_to_numpy()
+    if isinstance(v, tuple):
+        return tuple(_tree(e) for e in v)
+    return v

@@ -2,10 +2,10 @@
 
 Port of ``libhpc_tpu/sparse/csr.py:CSR``: the interchange container of the
 main path's CSR half, with int32 indices and scipy bridges for oracle
-testing, and ``to_ell``. The builders build on the host and move the
-leaves to ``device`` (default ``"cuda"``) once at the end; ``device="cpu"``
-keeps them on the CPU. ``from_coo``, ``tocoo`` and ``to_bsr`` come with
-the slices that port COO and BSR.
+testing, the COO bridges ``from_coo`` / ``tocoo``, and ``to_ell`` /
+``to_bsr``. The builders build on the host and move the leaves to
+``device`` (default ``"cuda"``) once at the end; ``device="cpu"`` keeps
+them on the CPU. ``from_coo`` sorts and segments on the COO's device.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from libhpc_tpu_torch.ops._cuda_utils import as_tensor
 from libhpc_tpu_torch.sparse._leaves import TensorLeaves, tensor_from_numpy
 
 
@@ -68,6 +69,25 @@ class CSR(TensorLeaves):
 
         return CSR.from_scipy(sps.csr_matrix(np.asarray(mat)), device=device)
 
+    @staticmethod
+    def from_coo(coo) -> "CSR":
+        """Row-sort the COO triplets and build indptr by searchsorted: one
+        sort and one vectorized search instead of per-element inserts
+        (libHPC's HashBlock.hpp:92-102)."""
+        c = coo.sort_indices("row")
+        nrows = coo.shape[0]
+        bounds = torch.arange(nrows + 1, dtype=torch.int32,
+                              device=c.row.device)
+        indptr = torch.searchsorted(c.row, bounds).to(torch.int32)
+        return CSR(data=c.data, indices=c.col, indptr=indptr,
+                   shape=coo.shape)
+
+    def tocoo(self):
+        from libhpc_tpu_torch.sparse.coo import COO
+
+        return COO(row=self.row_of_nnz(), col=self.indices, data=self.data,
+                   shape=self.shape)
+
     # -- derived index structures -----------------------------------------
 
     def row_of_nnz(self) -> torch.Tensor:
@@ -100,12 +120,19 @@ class CSR(TensorLeaves):
 
         return ELL.from_csr(self, max_nnz_per_row, pad_multiple=pad_multiple)
 
+    def to_bsr(self, block: int = 8):
+        from libhpc_tpu_torch.sparse.bsr import BSR
+
+        return BSR.from_csr(self, block=block)
+
     # -- ops ---------------------------------------------------------------
 
     def __matmul__(self, x):
-        from libhpc_tpu_torch.ops import spmv
+        """csr_spmv for a vector, csr_spmm for a matrix; a numpy x goes to
+        this CSR's device."""
+        from libhpc_tpu_torch.ops import spmm, spmv
 
-        if x.ndim != 1:
-            raise NotImplementedError(
-                "CSR @ 2-D (csr_spmm) is not ported yet")
-        return spmv.csr_spmv(self, x)
+        x = as_tensor(x, self.device)
+        if x.ndim == 1:
+            return spmv.csr_spmv(self, x)
+        return spmm.csr_spmm(self, x)

@@ -14,10 +14,16 @@ import torch
 
 def _port_class(name):
     from libhpc_tpu_torch import containers
-    from libhpc_tpu_torch.ops import sellp, spmv_dia, spmv_sell
-    from libhpc_tpu_torch.sparse import csr, dia, ell, grid, sbell
+    from libhpc_tpu_torch.ops import multigrid_sbell, sellp, spmv_dia
+    from libhpc_tpu_torch.ops import spmv_sell
+    from libhpc_tpu_torch.sparse import bell, bsr, coo, csr, dia, ell, grid
+    from libhpc_tpu_torch.sparse import hybrid, sbell
 
     return {"CSR": csr.CSR, "SBELL": sbell.SBELL, "FarPane": sbell.FarPane,
+            "COO": coo.COO, "BSR": bsr.BSR, "BELL": bell.BELL,
+            "BandedHybrid": hybrid.BandedHybrid,
+            "AMGLevel": multigrid_sbell.AMGLevel,
+            "AMGHierarchy": multigrid_sbell.AMGHierarchy,
             "FarBlocks": sbell.FarBlocks, "DIA": dia.DIA, "ELL": ell.ELL,
             "DiaPallas": spmv_dia.DiaPallas, "SELL": spmv_sell.SELL,
             "SELLSplit": spmv_sell.SELLSplit, "SELLP": sellp.SELLP,
@@ -25,9 +31,15 @@ def _port_class(name):
             "NestedGrid": grid.NestedGrid}[name]
 
 
+def _is_container_tuple(v):
+    return isinstance(v, tuple) and all(dataclasses.is_dataclass(e)
+                                        for e in v)
+
+
 def port_of(ref):
     """The port's container built from a reference container's leaves
-    (np.asarray of each array, bf16 included) and static fields."""
+    (np.asarray of each array, bf16 included) and static fields; nested
+    containers, and tuples of them, are carried over the same way."""
     arrays, statics = {}, {}
     for f in dataclasses.fields(ref):
         v = getattr(ref, f.name)
@@ -37,6 +49,8 @@ def port_of(ref):
             statics[f.name] = None
         elif dataclasses.is_dataclass(v):
             statics[f.name] = port_of(v)
+        elif _is_container_tuple(v):
+            statics[f.name] = tuple(port_of(e) for e in v)
         else:
             arrays[f.name] = np.asarray(v)
     return _port_class(type(ref).__name__).from_numpy(arrays, **statics)
@@ -49,7 +63,8 @@ def _bits(a):
 
 def assert_same_container(port, ref):
     """Array-by-array (bf16 bit for bit) and static-field equality of a
-    port container with a reference container, far set included."""
+    port container with a reference container, far set and nested
+    containers (and tuples of them) included."""
     assert type(port).__name__ == type(ref).__name__
     leaves = port.to_numpy()
     for f in dataclasses.fields(ref):
@@ -60,6 +75,11 @@ def assert_same_container(port, ref):
             assert getattr(port, f.name) is None, f.name
         elif dataclasses.is_dataclass(v):
             assert_same_container(getattr(port, f.name), v)
+        elif _is_container_tuple(v):
+            got = getattr(port, f.name)
+            assert isinstance(got, tuple) and len(got) == len(v), f.name
+            for p_e, r_e in zip(got, v):
+                assert_same_container(p_e, r_e)
         else:
             want = _bits(v)
             got = leaves[f.name]
@@ -77,6 +97,18 @@ def cuda_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one thread for a module. The suite runs several
+    worker processes on a few cores; a plain path of many small ops (a
+    V-cycle, a Krylov loop) then spends its time in thread teams waiting
+    for cores the other workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 # the chunk sorts' key sets (K8, K11): ties, the extremes of the u32 and

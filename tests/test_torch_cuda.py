@@ -1734,3 +1734,173 @@ def test_benches_run_on_the_card(cuda_device, capsys):
     assert all("error" not in d for d in lines), lines
     out = oc.run(mb=64)
     assert out["platform"] == "gpu" and out["stream_gb_per_s"] > 0
+
+
+# -- the solver family and the other formats (no kernel of their own; the
+# AMG V-cycle runs the SBELL SpMV kernel on every level) --------------------
+
+def _amg_launches_per_cycle(H):
+    """(fused, near) launches one V-cycle makes: pre - 1 + 1 + post
+    matvecs a level, fused on a FarPane (or empty) far set, a near launch
+    on FarBlocks."""
+    per_level = H.pre - 1 + 1 + H.post
+    fused = sum(per_level for lev in H.levels
+                if not isinstance(lev.sbell.far, FarBlocks))
+    return fused, per_level * len(H.levels) - fused
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("fem", dict(n_levels=3, coarse_max=300)),
+    ("poisson64_3lv", dict(n_levels=3, coarse_max=200)),
+    ("poisson64_sa", dict(n_levels=2, coarse_max=1500, smooth_p=True))])
+def test_amg_vcycle_on_card_matches_cpu(cuda_device, name, kw):
+    from libhpc_tpu_torch.examples.amg_solve import spd_fem
+    from libhpc_tpu_torch.ops import multigrid_sbell as amg
+
+    A = spd_fem(400) if name == "fem" else matrices.poisson2d(64)
+    H_cpu = amg.amg_setup(A, device="cpu", **kw)
+    H = amg.amg_setup(A, **kw)
+    assert H.device.type == "cuda" and H.levels
+    b = np.random.default_rng(3).standard_normal(A.shape[0]) \
+        .astype(np.float32)
+    want = amg.amg_vcycle(H_cpu, torch.from_numpy(b))
+    s0, n0, f0 = _counts()
+    got = amg.amg_vcycle(H, torch.from_numpy(b).to(cuda_device))
+    torch.cuda.synchronize()
+    fused, near = _amg_launches_per_cycle(H)
+    assert _counts() == (s0 + fused, n0 + near, f0)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                               atol=1e-5 * float(want.abs().max()))
+    sb = H.levels[0].sbell
+    x, it, _ = amg.amg_pcg(H, lambda v: spmv_sbell.sbell_spmv(sb, v), b,
+                           tol=1e-6)
+    sb_cpu = H_cpu.levels[0].sbell
+    _, it_cpu, _ = amg.amg_pcg(H_cpu,
+                               lambda v: spmv_sbell.sbell_spmv(sb_cpu, v),
+                               torch.from_numpy(b), tol=1e-6)
+    assert abs(it - it_cpu) <= 1
+    r = b.astype(np.float64) - A @ x.cpu().numpy().astype(np.float64)
+    assert np.linalg.norm(r) <= 2e-5 * max(np.linalg.norm(b), 1.0)
+
+
+def test_amg_guard_panes_stay_zero_over_nan(cuda_device, monkeypatch):
+    """Every pane array the V-cycle hands the kernel, and every one it gets
+    back, is fresh, contiguous and zero in its guard panes, also where the
+    allocator hands out memory that held NaN."""
+    from libhpc_tpu_torch.examples.amg_solve import spd_fem
+    from libhpc_tpu_torch.ops import multigrid_sbell as amg
+
+    A = spd_fem(400)
+    H = amg.amg_setup(A, n_levels=3, coarse_max=300)
+    seen = []
+
+    def checked(sb, x3):
+        assert x3.is_contiguous() and x3.data_ptr() % 16 == 0
+        assert torch.all(x3[sb.n_panes:] == 0)
+        out = spmv_sbell.sbell_spmv_panes(sb, x3)
+        assert torch.all(out[sb.n_stripes:] == 0)
+        assert torch.all(torch.isfinite(out))
+        seen.append(sb.n_stripes)
+        return out
+
+    monkeypatch.setattr(amg, "sbell_spmv_panes", checked)
+    b = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        A.shape[0]).astype(np.float32)).to(cuda_device)
+    for _ in range(2):
+        junk = torch.full((1 << 22,), float("nan"), device=cuda_device)
+        del junk
+        u = amg.amg_vcycle(H, b)
+        assert torch.all(torch.isfinite(u))
+    assert len(seen) == 2 * 4 * len(H.levels)
+
+
+def test_solver_builders_default_to_the_card(cuda_device):
+    from libhpc_tpu_torch.ops import multigrid_sbell as amg
+    from libhpc_tpu_torch.sparse import BELL, BSR, COO, BandedHybrid
+
+    A = matrices.poisson2d(40)
+    for built in (COO.from_scipy(A), COO.from_dense(A.toarray()),
+                  BSR.from_scipy(A), BSR.from_dense(A.toarray()),
+                  BELL.from_scipy(A), BandedHybrid.from_scipy(A),
+                  amg.amg_setup(A, n_levels=2, coarse_max=500)):
+        assert built.device.type == "cuda"
+
+
+def _format_cases():
+    A = sps.random(700, 650, density=0.02, format="csr", dtype=np.float32,
+                   random_state=np.random.RandomState(9)).tolil()
+    A[0, :] = 0
+    A[5, :] = 0
+    return A.tocsr()
+
+
+def test_new_spmv_and_spmm_on_card_match_scipy(cuda_device):
+    from libhpc_tpu_torch.ops import spmm, spmv
+    from libhpc_tpu_torch.sparse import BELL, BSR, COO, CSR, ELL
+    from libhpc_tpu_torch.sparse import BandedHybrid
+
+    A = _format_cases()
+    m, n = A.shape
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal(n).astype(np.float32)
+    y = rng.standard_normal(m).astype(np.float32)
+    Bd = rng.standard_normal((n, 64)).astype(np.float32)
+    xd = torch.from_numpy(x).to(cuda_device)
+
+    def gate(got, want):
+        assert got.device.type == "cuda"
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=2e-3,
+                                   atol=2e-3)
+
+    gate(spmv.coo_spmv(COO.from_scipy(A), xd), A @ x)
+    csr = CSR.from_scipy(A)
+    gate(spmv.csr_spmv_t(csr, torch.from_numpy(y).to(cuda_device)), A.T @ y)
+    gate(csr @ Bd, A @ Bd)
+    gate(spmm.csr_spmm(csr, torch.from_numpy(Bd).to(cuda_device)), A @ Bd)
+    gate(spmm.ell_spmm(ELL.from_scipy(A),
+                       torch.from_numpy(Bd).to(cuda_device)), A @ Bd)
+    bsr = BSR.from_scipy(A, block=8)
+    xp = np.zeros(bsr.shape[1], np.float32)
+    xp[:n] = x
+    gate((bsr @ xp)[:m], A @ x)
+    Bp = np.zeros((bsr.shape[1], 64), np.float32)
+    Bp[:n] = Bd
+    gate(spmm.bsr_spmm(bsr, torch.from_numpy(Bp).to(cuda_device))[:m],
+         A @ Bd)
+    gate((BELL.from_scipy(A, block=8) @ xp)[:m], A @ x)
+    Asq = matrices.poisson2d(48)
+    xs = rng.standard_normal(Asq.shape[1]).astype(np.float32)
+    gate(BandedHybrid.from_scipy(Asq) @ xs, Asq @ xs)
+
+
+def test_multigrid_and_precision_on_card_match_cpu(cuda_device):
+    from libhpc_tpu_torch.ops import multigrid as mg
+    from libhpc_tpu_torch.ops import precision as pr
+
+    rng = np.random.default_rng(0)
+    f = rng.random((127, 127)).astype(np.float32)
+    h = 1.0 / 128
+    u, res = mg.mg_solve(f, h=h, n_cycles=4)
+    assert u.device.type == "cuda" and res.device.type == "cuda"
+    uc, resc = mg.mg_solve(f, h=h, n_cycles=4, device="cpu")
+    torch.testing.assert_close(u.cpu(), uc, rtol=1e-4,
+                               atol=1e-4 * float(uc.abs().max()))
+    fc = rng.random((128, 128)).astype(np.float32)
+    u, res = mg.mg_solve_cc(fc, h=1.0 / 128, n_cycles=4)
+    uc, _ = mg.mg_solve_cc(fc, h=1.0 / 128, n_cycles=4, device="cpu")
+    torch.testing.assert_close(u.cpu(), uc, rtol=1e-4,
+                               atol=1e-4 * float(uc.abs().max()))
+    big = rng.random(500_000).astype(np.float32) * 1e7
+    x = np.concatenate([big, -big, rng.random(500_001).astype(np.float32)])
+    rng.shuffle(x)
+    exact = x.astype(np.float64).sum()
+    comp = pr.sum_compensated(x)
+    assert comp.device.type == "cuda"
+    assert abs(float(comp) - exact) < 1e-2
+    # eager ops on the card contract nothing: bit-equal to the CPU
+    assert float(comp) == float(pr.sum_compensated(x, device="cpu"))
+    a = (rng.random(100_001) * 2 - 1).astype(np.float32) * 1e4
+    c = (rng.random(100_001) * 2 - 1).astype(np.float32) * 1e-4
+    exact = np.dot(a.astype(np.float64), c.astype(np.float64))
+    assert abs(float(pr.dot_compensated(a, c)) - exact) \
+        <= 1e-6 * abs(exact)

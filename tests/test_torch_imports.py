@@ -30,6 +30,10 @@ MODULES = [
     "libhpc_tpu_torch.sparse",
     "libhpc_tpu_torch.sparse._leaves",
     "libhpc_tpu_torch.sparse.csr",
+    "libhpc_tpu_torch.sparse.coo",
+    "libhpc_tpu_torch.sparse.bsr",
+    "libhpc_tpu_torch.sparse.bell",
+    "libhpc_tpu_torch.sparse.hybrid",
     "libhpc_tpu_torch.sparse.sbell",
     "libhpc_tpu_torch.sparse.dia",
     "libhpc_tpu_torch.sparse.ell",
@@ -38,6 +42,10 @@ MODULES = [
     "libhpc_tpu_torch.ops._cuda_utils",
     "libhpc_tpu_torch.ops.spmv",
     "libhpc_tpu_torch.ops.solver",
+    "libhpc_tpu_torch.ops.spmm",
+    "libhpc_tpu_torch.ops.precision",
+    "libhpc_tpu_torch.ops.multigrid",
+    "libhpc_tpu_torch.ops.multigrid_sbell",
     "libhpc_tpu_torch.ops.spmv_sbell",
     "libhpc_tpu_torch.ops.far_sbell",
     "libhpc_tpu_torch.ops.spmv_dia",
@@ -61,6 +69,10 @@ MODULES = [
     "libhpc_tpu_torch.bench.harness",
     "libhpc_tpu_torch.bench.overlap_chip",
     "libhpc_tpu_torch.bench.microarch",
+    "libhpc_tpu_torch.examples",
+    "libhpc_tpu_torch.examples.amg_solve",
+    "libhpc_tpu_torch.examples.poisson_cg",
+    "libhpc_tpu_torch.examples.multigrid_demo",
 ]
 
 
@@ -283,7 +295,9 @@ def _aims_at_the_card(fn):
 
 
 def _builders():
-    from libhpc_tpu_torch.sparse import CSR, ELL, auto
+    from libhpc_tpu_torch.ops import multigrid_sbell
+    from libhpc_tpu_torch.sparse import BELL, BSR, COO, CSR, ELL, auto
+    from libhpc_tpu_torch.sparse import BandedHybrid
 
     A = matrices.poisson2d(32)
     dia_cpu = DIA.from_scipy(A, device="cpu")
@@ -304,13 +318,22 @@ def _builders():
         "sellp_from_scipy": lambda: sellp.sellp_from_scipy(A),
         "DiaPallas.from_dia": lambda: spmv_dia.DiaPallas.from_dia(
             dia_cpu, T=1 << 12),
+        "COO.from_scipy": lambda: COO.from_scipy(A),
+        "COO.from_dense": lambda: COO.from_dense(A.toarray()),
+        "BSR.from_scipy": lambda: BSR.from_scipy(A),
+        "BSR.from_dense": lambda: BSR.from_dense(A.toarray()),
+        "BELL.from_scipy": lambda: BELL.from_scipy(A),
+        "BandedHybrid.from_scipy": lambda: BandedHybrid.from_scipy(A),
+        "amg_setup": lambda: multigrid_sbell.amg_setup(A),
     }
 
 
 BUILDERS = ["BlockGrid.create", "NestedGrid.create", "CSR.from_scipy", "CSR.from_dense", "SBELL.from_scipy",
             "DIA.from_scipy", "ELL.from_scipy", "auto_format",
             "sell_from_ell", "sell_from_scipy", "sellp_from_scipy",
-            "DiaPallas.from_dia"]
+            "DiaPallas.from_dia", "COO.from_scipy", "COO.from_dense",
+            "BSR.from_scipy", "BSR.from_dense", "BELL.from_scipy",
+            "BandedHybrid.from_scipy", "amg_setup"]
 
 
 @pytest.mark.parametrize("name", BUILDERS)
@@ -340,6 +363,8 @@ def _numpy_ops():
 def _dense_layer_ops():
     from libhpc_tpu_torch.containers import HaloArray
     from libhpc_tpu_torch.ops import matmul as mm
+    from libhpc_tpu_torch.ops import multigrid as mg
+    from libhpc_tpu_torch.ops import precision as pr
     from libhpc_tpu_torch.ops import reduce as red
     from libhpc_tpu_torch.ops import stencil
     from libhpc_tpu_torch.ops import transpose as tr
@@ -369,6 +394,11 @@ def _dense_layer_ops():
         "morton2d_decode": lambda: morton.morton2d_decode(c),
         "morton3d_encode": lambda: morton.morton3d_encode(c, c, c),
         "morton3d_decode": lambda: morton.morton3d_decode(c),
+        "sum_compensated": lambda: pr.sum_compensated(a),
+        "dot_compensated": lambda: pr.dot_compensated(a, a),
+        "norm2_compensated": lambda: pr.norm2_compensated(a),
+        "mg_solve": lambda: mg.mg_solve(a[:15, :15], n_cycles=1),
+        "mg_solve_cc": lambda: mg.mg_solve_cc(a[:16, :16], n_cycles=1),
     }
 
 
@@ -380,7 +410,9 @@ NUMPY_OPS = ["u32_bits", "is_sorted", "sort_u32", "merge_sort_u32",
              "blur2d_pallas", "blur_x", "blur2d", "box_sum_1d",
              "poisson5_apply", "poisson7_apply", "HaloArray.wrap",
              "HaloArray.from_padded", "morton2d_encode", "morton2d_decode",
-             "morton3d_encode", "morton3d_decode"]
+             "morton3d_encode", "morton3d_decode", "sum_compensated",
+             "dot_compensated", "norm2_compensated", "mg_solve",
+             "mg_solve_cc"]
 
 
 @pytest.mark.parametrize("name", NUMPY_OPS)
@@ -452,3 +484,38 @@ def test_ptxas_usage_reads_the_nvcc_report(tmp_path, monkeypatch):
     assert got == {
         "_Z3fooPf": {"registers": 125, "spill_stores": 0, "spill_loads": 0},
         "_Z3barPi": {"registers": 40, "spill_stores": 12, "spill_loads": 16}}
+
+
+def test_ptxas_usage_reads_the_reports_the_build_kept(tmp_path, monkeypatch):
+    """The kernel build keeps each source's ptxas report beside the
+    library, and ptxas_usage reads it from there without compiling again
+    (a stand-in nvcc that writes its -o file, prints a report and logs
+    each call)."""
+    from libhpc_tpu_torch.ops import _cuda_utils
+
+    report = ("ptxas info    : Compiling entry function '_Z3fooPf' for "
+              "'sm_90a'\n"
+              "ptxas info    : Function properties for _Z3fooPf\n"
+              "    0 bytes stack frame, 4 bytes spill stores, 8 bytes spill "
+              "loads\n"
+              "ptxas info    : Used 64 registers, 400 bytes cmem[0]\n")
+    calls = tmp_path / "calls.txt"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\nimport sys\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'w').close()\n"
+        f"open({str(calls)!r}, 'a').write(' '.join(sys.argv[1:]) + '\\n')\n"
+        f"sys.stderr.write({report!r})\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_cuda_utils, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_cuda_utils, "BUILD_DIR", tmp_path / "build")
+    so = _cuda_utils.build_library()
+    n_sources = len(_cuda_utils._sources())
+    built = calls.read_text().splitlines()
+    assert so.exists() and len(built) == n_sources + 1     # and one link
+    assert all("-Xptxas -v" in line for line in built[:n_sources])
+    got = _cuda_utils.ptxas_usage("matmul.cu", "blur2d.cu")
+    assert got == {"_Z3fooPf": {"registers": 64, "spill_stores": 4,
+                                "spill_loads": 8}}
+    assert calls.read_text().splitlines() == built
