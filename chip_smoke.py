@@ -9,7 +9,8 @@ seeds), and its CSR half (csr_spmv + CG on the shifted 1024x1024 Poisson).
 Then the solver family on that path: aggregation AMG, whose every smoothing
 sweep runs the SBELL SpMV kernel, geometric multigrid and the compensated
 reductions, and the other sparse formats (COO, BSR, BELL, the banded
-hybrid) with their SpMV and SpMM.
+hybrid) with their SpMV and SpMM, SpGEMM (windowed and on 8 x 8 blocks at
+pwtk_like size) and the utilities with the native host runtime.
 Then the second entry point, sparse.auto_format, and the rest of the SpMV
 family behind it: the streaming DIA kernel and its probe on Poisson 3072^2
 (9.4M rows, 47.2M nnz), a CG solve through it, the plain DIA path, SELL on
@@ -199,6 +200,28 @@ the script started (t_s):
                the corpus's SpMM cases spmm_ell_poisson512_k64 and
                spmm_bsr_cant_k64 (corpus.py:296-326), each against scipy
                at 2e-3, with times beside the torch.sparse CSR product
+ 29e spgemm    SpGEMM (no kernel of its own): pwtk_like A @ A windowed at
+               2^22 slots a window (the reference's spgemm_pwtk_10m: 658.7M
+               products, 158 windows in batches of 8; seconds, G
+               products/s, the device time by CUDA events around each
+               batch, the host's symbolic pass, prep, pulls and seam merge)
+               and on 8 x 8 blocks with mxu on and off (spgemm_block_pwtk:
+               wall time with the host symbolic pass, the numeric pass alone
+               by graph replay, pairs, output blocks); spgemm, spgemm_csr
+               and spgemm_blocked on cant_like (its ELL expansion printed
+               first); each gated against scipy's product (max |C - A A| <
+               1e-2 over both entry sets, the windowed form with scipy's
+               nnz), timed beside torch.sparse.mm; no TF32 flag on
+ 29f runtime   the native host library (built by runtime/native.py in a
+               thread beside the phases) and its self-test, an ArenaPool
+               round trip, cant_like written to a .mtx and read by
+               load_mtx_native (equal to scipy.io.mmread) into an SBELL
+               and one fused SpMV against scipy, the host Morton encode
+               against utils/morton on the card, a CG checkpoint resumed on
+               the card (equal to resuming from the live state at rtol
+               1e-6), the CSR checks on a good and a corrupted CUDA CSR,
+               and a trace_to of a CG solve that names its annotate("cg")
+               range
  30 library    torch.sparse CSR matvecs of the SpMV kernels' matrices,
                the library yardstick of K1-K7 (after every profile)
  31 sass       the HGMMA (wgmma) lines in the library's SASS (fails at 0;
@@ -1175,6 +1198,403 @@ def formats_phase(dev) -> None:
     Aupt = torch_csr(Aup, dev)
     case("spmm_bsr_cant_k64", lambda: spmm.bsr_spmm(bsr, Xud), Aup @ Xu,
          time_ms(lambda: Aupt @ Xud))
+
+
+SPGEMM_WINDOW = 1 << 22   # spgemm_pwtk_10m's window (bench.py:685-712)
+SPGEMM_GATE = 1e-2        # max |C - A A| of the reference's SpGEMM cases
+
+
+def assert_no_tf32(what: str) -> None:
+    import torch
+
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        raise AssertionError(f"{what}: a TF32 flag is on")
+
+
+def csr_on_card(C, dev):
+    """scipy CSR C as device (row, col, data) int64 / int64 / float32."""
+    import numpy as np
+    import torch
+
+    C = C.tocsr()
+    C.sort_indices()
+    rows = torch.repeat_interleave(
+        torch.arange(C.shape[0], device=dev),
+        torch.from_numpy(np.diff(C.indptr).astype(np.int64)).to(dev))
+    return (rows, torch.from_numpy(C.indices.astype(np.int64)).to(dev),
+            torch.from_numpy(C.data.astype(np.float32)).to(dev))
+
+
+def gate_triplets(row, col, data, ref, ncols: int, what: str) -> dict:
+    """Device (row, col, data) of a product with ncols columns (explicit
+    zeros and duplicates allowed) against ref = csr_on_card of scipy's, as
+    the reference's gates compare: max |C - A A| over the union of their
+    entries < SPGEMM_GATE. Returns {nnz: C's nonzero entries,
+    max_abs_err}."""
+    import torch
+
+    key = torch.cat([row.long() * ncols + col.long(),
+                     ref[0] * ncols + ref[1]])
+    val = torch.cat([data.float(), -ref[2]])
+    uniq, inv = torch.unique(key, return_inverse=True)
+    diff = torch.zeros(uniq.numel(), device=val.device).index_add_(0, inv,
+                                                                    val)
+    err = float(diff.abs().max()) if diff.numel() else 0.0
+    if not err < SPGEMM_GATE:
+        raise AssertionError(f"{what}: max |C - A A| {err} >= {SPGEMM_GATE}")
+    return {"nnz": int((data != 0).sum()), "max_abs_err": err}
+
+
+def timed_stages(module, host_names, device_name, record):
+    """Wrap module functions for one call of an entry point: host seconds
+    of each of host_names (and of device_name's enqueue) summed into
+    record[name], and CUDA events around each call of device_name in
+    record["events"]. Returns a function that puts the originals back."""
+    import torch
+
+    saved = {n: getattr(module, n) for n in (*host_names, device_name)}
+
+    def host(name, fn):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                record[name] = (record.get(name, 0.0)
+                                + time.perf_counter() - t0)
+        return wrapped
+
+    def device(fn):
+        def wrapped(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            record.setdefault("events", []).append((start, end))
+            return out
+        return wrapped
+
+    for n in host_names:
+        setattr(module, n, host(n, saved[n]))
+    setattr(module, device_name, host(device_name,
+                                      device(saved[device_name])))
+
+    def restore():
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+    return restore
+
+
+def spgemm_library_ms(A, dev) -> dict:
+    """torch.sparse.mm of A's float32 torch.sparse CSR by itself on the
+    card (cuSPARSE SpGEMM): the library yardstick, used nowhere in the
+    port. A RuntimeError of the library is recorded, not raised."""
+    import torch
+
+    At = torch_csr(A, dev)
+    try:
+        ms = time_ms(lambda: torch.sparse.mm(At, At), warmup=1, reps=3)
+        nnz = int(torch.sparse.mm(At, At)._nnz())
+    except RuntimeError as e:
+        return {"torch_sparse_mm_error": str(e)[:200]}
+    finally:
+        torch.cuda.synchronize()
+    return {"torch_sparse_mm_ms": ms, "torch_sparse_mm_nnz": nnz}
+
+
+def spgemm_phase(dev) -> None:
+    """Phase 29e: SpGEMM (ops/spgemm.py, ops/spgemm_bsr.py; torch ops, no
+    kernel of their own). pwtk_like A @ A: windowed at 2^22 slots a window
+    (the reference's spgemm_pwtk_10m) and on 8 x 8 blocks, mxu and not
+    (spgemm_block_pwtk); cant_like: spgemm, spgemm_csr, spgemm_blocked
+    (row_block 4096). Each against scipy's product (max |C - A A| < 1e-2
+    over both entry sets; the windowed form also with scipy's nnz), with
+    times beside torch.sparse.mm's."""
+    import numpy as np
+    import torch
+
+    from libhpc_tpu_torch.bench import matrices
+    from libhpc_tpu_torch.ops import spgemm, spgemm_bsr
+    from libhpc_tpu_torch.sparse import BSR, CSR
+
+    assert_no_tf32("spgemm")
+    A = matrices.load_or_synthesize("pwtk")
+    t0 = time.perf_counter()
+    ref = csr_on_card(A @ A, dev)
+    scipy_s = time.perf_counter() - t0
+    Ac = CSR.from_scipy(A, device=dev)
+    S = spgemm.spgemm_expansion_size(Ac, Ac)
+    lenB = np.diff(A.indptr).astype(np.int64)
+    if S != int(lenB[A.indices].sum()):
+        raise AssertionError(f"spgemm_expansion_size {S}")
+    small = CSR.from_scipy(matrices.poisson2d(32), device=dev)
+    spgemm.spgemm_windowed(small, small, window=1 << 12)     # warm
+    rec = {}
+    restore = timed_stages(spgemm, ("_symbolic_windows", "_prep_batch",
+                                    "_pull_batch", "_merge_seams"),
+                           "_spgemm_window", rec)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C = spgemm.spgemm_windowed(Ac, Ac, window=SPGEMM_WINDOW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    device_s = sum(s.elapsed_time(e) for s, e in rec["events"]) / 1e3
+    if C.nnz != ref[0].numel():
+        raise AssertionError(f"spgemm_pwtk_10m: nnz {C.nnz} against "
+                             f"scipy's {ref[0].numel()}")
+    g = gate_triplets(C.row, C.col, C.data, ref, A.shape[1],
+                      "spgemm_pwtk_10m")
+    emit({"phase": "spgemm", "case": "spgemm_pwtk_10m",
+          "window": SPGEMM_WINDOW, "seconds": wall,
+          "g_products_per_s": S / wall / 1e9, "expansion": S,
+          "nnz_a": int(A.nnz), "nnz_c": g["nnz"],
+          "windows": -(-S // SPGEMM_WINDOW), "batches": len(rec["events"]),
+          "device_s": device_s,
+          "host_symbolic_s": rec["_symbolic_windows"],
+          "host_prep_s": rec["_prep_batch"],
+          "enqueue_s": rec["_spgemm_window"],
+          "pull_s": rec["_pull_batch"], "host_merge_s": rec["_merge_seams"],
+          "max_abs_err": g["max_abs_err"], "scipy_product_s": scipy_s,
+          **spgemm_library_ms(A, dev)})
+    del C, Ac, small
+
+    Ab = BSR.from_scipy(A, block=8, device=dev)
+    if Ab.shape != A.shape:
+        raise AssertionError(f"pwtk_like is not a multiple of 8: {A.shape}")
+    for mxu in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Cb = spgemm_bsr.spgemm_bsr(Ab, Ab, mxu=mxu)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        b = Cb.b
+        rows = (Cb.block_row_of_block().long()[:, None, None] * b
+                + torch.arange(b, device=dev)[None, :, None]).expand(
+                    -1, b, b)
+        cols = (Cb.indices.long()[:, None, None] * b
+                + torch.arange(b, device=dev)[None, None, :]).expand(
+                    -1, b, b)
+        g = gate_triplets(rows.reshape(-1), cols.reshape(-1),
+                          Cb.blocks.reshape(-1), ref, A.shape[1],
+                          f"spgemm_block_pwtk mxu={mxu}")
+        # the numeric pass alone: one call replayed from a CUDA graph
+        t0 = time.perf_counter()
+        ai = Ab.indices.cpu().numpy().astype(np.int64)
+        ap = Ab.indptr.cpu().numpy().astype(np.int64)
+        ia, ib, seg, out_r, _ = spgemm_bsr._symbolic(ai, ap, ai, ap,
+                                                     Ab.shape[1] // b)
+        symbolic_s = time.perf_counter() - t0
+        P, n_out = ia.size, out_r.size
+        iad, ibd, segd = (torch.from_numpy(v).to(dev) for v in (ia, ib, seg))
+        blocks = Ab.blocks.float()
+        acc = torch.zeros((n_out, b, b), device=dev)
+
+        def numeric():
+            acc.zero_()
+            for p0 in range(0, P, spgemm_bsr.PAIR_CHUNK):
+                p1 = min(P, p0 + spgemm_bsr.PAIR_CHUNK)
+                spgemm_bsr._numeric_chunk(blocks, blocks, iad[p0:p1],
+                                          ibd[p0:p1], segd[p0:p1], acc,
+                                          n_out=n_out, mxu=mxu, bsz=b)
+
+        dev_ms = graph_ms(numeric)
+        emit({"phase": "spgemm", "case": "spgemm_block_pwtk", "mxu": mxu,
+              "wall_s": wall, "host_symbolic_s": symbolic_s,
+              "device_ms": dev_ms,
+              "g_products_per_s_wall": S / wall / 1e9,
+              "g_products_per_s_device": S / (dev_ms * 1e-3) / 1e9,
+              "pairs": int(P), "nnzb_c": int(n_out), "nnz_c": g["nnz"],
+              "max_abs_err": g["max_abs_err"]})
+        del Cb, rows, cols, iad, ibd, segd, acc, blocks
+    del Ab, ref, A
+
+    # spgemm / spgemm_csr / spgemm_blocked on cant_like: the ELL expansion
+    # nnzA x kB must fit the card (about 60 bytes a slot through the sort
+    # and the segment sums), else spgemm alone runs on Poisson 1024^2
+    A = matrices.load_or_synthesize("cant")
+    kB = max(1, -(-int(np.diff(A.indptr).max()) // 8) * 8)
+    expansion = A.nnz * kB
+    free = torch.cuda.mem_get_info()[0]
+    fits = expansion * 60 < free
+    emit({"phase": "spgemm", "case": "cant_like_ell_expansion",
+          "nnz_a": int(A.nnz), "kB": kB, "ell_expansion": expansion,
+          "exact_expansion": int(np.diff(A.indptr)[A.indices].sum()),
+          "free_bytes": free, "fits": fits})
+    if not fits:
+        A = matrices.poisson2d(1024)
+        print("spgemm: cant_like's ELL expansion does not fit the card; "
+              "spgemm runs on Poisson 1024^2 instead", flush=True)
+    name = "cant_like" if fits else "poisson1024"
+    ref = csr_on_card(A @ A, dev)
+    lib = spgemm_library_ms(A, dev)
+    Ac = CSR.from_scipy(A, device=dev)
+    cases = {"spgemm": lambda: spgemm.spgemm(Ac, Ac)}
+    if fits:
+        cases["spgemm_csr"] = lambda: spgemm.spgemm_csr(Ac, Ac)
+        cases["spgemm_blocked"] = lambda: spgemm.spgemm_blocked(Ac, Ac)
+    for case, fn in cases.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        row = C.row_of_nnz() if case == "spgemm_csr" else C.row
+        col = C.indices if case == "spgemm_csr" else C.col
+        g = gate_triplets(row, col, C.data, ref, A.shape[1],
+                          f"{case} {name}")
+        emit({"phase": "spgemm", "case": f"{case}_{name}", "seconds": wall,
+              "slots": int(C.nnz), "nnz_c": g["nnz"],
+              "max_abs_err": g["max_abs_err"], **lib})
+        del C, row, col
+    assert_no_tf32("spgemm")
+
+
+def runtime_phase(dev, native_build) -> None:
+    """Phase 29f: the utilities and the native runtime on the card: the
+    native library's build (started beside the phases before) and
+    self-test, an ArenaPool round trip, cant_like through a MatrixMarket
+    file -> load_mtx_native (equal to scipy.io.mmread) -> SBELL -> one
+    fused SpMV (against scipy), the host Morton encode against
+    utils/morton, a CG checkpoint resumed on the card, the CSR checks on a
+    good and a corrupted CUDA CSR, and a trace of a CG solve naming its
+    annotate range."""
+    import dataclasses
+    import glob
+    import tempfile
+
+    import numpy as np
+    import scipy.io as sio
+    import torch
+
+    from libhpc_tpu_torch.bench import matrices
+    from libhpc_tpu_torch.ops import solver, spmv_sbell
+    from libhpc_tpu_torch.runtime import native
+    from libhpc_tpu_torch.sparse import CSR
+    from libhpc_tpu_torch.sparse.sbell import SBELL
+    from libhpc_tpu_torch.utils import checkpoint, profiling, validate
+    from libhpc_tpu_torch.utils.morton import morton2d_encode
+
+    build_s = native_build.result()
+    t0 = time.perf_counter()
+    native.get_lib()
+    load_s = time.perf_counter() - t0
+    rc = native.selftest()
+    if rc != 0:
+        raise AssertionError(f"native selftest returned {rc}")
+    pool = native.ArenaPool(page_size=4096)
+    ptrs = [pool.alloc(100) for _ in range(64)]
+    big = pool.alloc(1 << 16)
+    if any(p % 16 for p in ptrs) or not pool.free_large(big):
+        raise AssertionError("ArenaPool: misaligned or large free failed")
+    pool.reset()
+    pages = pool.n_pages
+    pool.close()
+
+    A = matrices.load_or_synthesize("cant")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cant.mtx")
+        t0 = time.perf_counter()
+        sio.mmwrite(path, A)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        L = native.load_mtx_native(path)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        M = sio.mmread(path).tocsr()
+        mmread_s = time.perf_counter() - t0
+        M.sort_indices()
+        if not (np.array_equal(L.indptr, M.indptr)
+                and np.array_equal(L.indices, M.indices)
+                and np.allclose(L.data, M.data, rtol=1e-6, atol=0)):
+            raise AssertionError("load_mtx_native differs from mmread")
+        t0 = time.perf_counter()
+        sb = SBELL.from_scipy(L, device=dev)
+        sbell_s = time.perf_counter() - t0
+        x = np.linspace(-1.0, 1.0, L.shape[1], dtype=np.float32)
+        spmv_sbell.SPMV_LAUNCHES = 0
+        y = spmv_sbell.sbell_spmv(sb, torch.from_numpy(x).to(dev))
+        torch.cuda.synchronize()
+        spmv_launches = spmv_sbell.SPMV_LAUNCHES
+        if spmv_launches != 1:
+            raise AssertionError(f"the loaded matrix's SpMV launched the "
+                                 f"fused kernel {spmv_launches} times")
+        gate(y[:L.shape[0]], L @ x, "load_mtx_native -> SBELL SpMV")
+    del sb, y
+
+    rng = np.random.default_rng(3)
+    mx = rng.integers(0, 1 << 16, 1 << 20).astype(np.uint32)
+    my = rng.integers(0, 1 << 16, 1 << 20).astype(np.uint32)
+    host = native.morton2d_encode_host(mx, my)
+    card = morton2d_encode(torch.from_numpy(mx.view(np.int32)).to(dev).long(),
+                           torch.from_numpy(my.view(np.int32)).to(dev).long(),
+                           device=dev)
+    if not np.array_equal(host, card.cpu().numpy()):
+        raise AssertionError("morton2d_encode_host differs from "
+                             "utils/morton on the card")
+
+    # a CG on spd(cant_like) through the fused SBELL SpMV (one CTA a
+    # stripe: deterministic), checkpointed after 20 iterations
+    As = spd_from(A)
+    sbs = SBELL.from_scipy(As, device=dev)
+    b = np.zeros(sbs.n_panes * 1024, np.float32)
+    b[:As.shape[0]] = 1.0
+    b3 = spmv_sbell.x_to_panes(sbs, torch.from_numpy(b).to(dev))
+
+    def mv(u):
+        return spmv_sbell.sbell_spmv_panes(sbs, u)
+
+    x1, it1, _ = solver.cg(mv, b3, tol=1e-10, max_iter=20)
+    with tempfile.TemporaryDirectory() as tmp:
+        p = os.path.join(tmp, "cg.npz")
+        checkpoint.save(p, {"x": x1, "it": it1})
+        back = checkpoint.restore(p, {"x": x1, "it": it1})
+        x1b = back["x"]
+        if x1b.device != x1.device or not torch.equal(x1b, x1):
+            raise AssertionError("checkpoint: x did not come back on the "
+                                 "card unchanged")
+        x2a, _, _ = solver.cg(mv, b3, x0=x1, tol=1e-10, max_iter=20)
+        x2b, _, _ = solver.cg(mv, b3, x0=x1b, tol=1e-10, max_iter=20)
+        torch.testing.assert_close(x2b, x2a, rtol=1e-6, atol=0)
+        resume_err = float((x2b - x2a).abs().max())
+
+        csr = CSR.from_scipy(A, device=dev)
+        err, _ = validate.csr_invariants_checked(csr)
+        if err.get() is not None:
+            raise AssertionError(f"good CSR failed: {err.get()}")
+        bad = dataclasses.replace(csr, indptr=csr.indptr.clone())
+        bad.indptr[7] = bad.indptr[9] + 1
+        err, _ = validate.csr_invariants_checked(bad)
+        if err.get() != "indptr not monotone":
+            raise AssertionError(f"corrupted CSR: {err.get()}")
+
+        logdir = os.path.join(tmp, "trace")
+        with profiling.trace_to(logdir):
+            with profiling.annotate("cg"):
+                _, it_t, _ = solver.cg(mv, b3, tol=1e-5)
+            torch.cuda.synchronize()
+        files = glob.glob(os.path.join(logdir, "*.json"))
+        names = set()
+        for f in files:
+            with open(f) as fh:
+                names |= {e.get("name") for e in json.load(fh)["traceEvents"]}
+        kernels_traced = sum(1 for n in names if n and "sbell_spmv" in n)
+        if "cg" not in names:
+            raise AssertionError(f"trace_to wrote {len(files)} files "
+                                 "without the annotate range 'cg'")
+    emit({"phase": "runtime", "native_build_s": build_s,
+          "native_load_s": load_s, "selftest": rc, "pool_pages": pages,
+          "mtx_nnz": int(L.nnz), "mmwrite_s": write_s,
+          "load_mtx_native_s": native_s, "mmread_s": mmread_s,
+          "sbell_build_s": sbell_s, "spmv_launches": spmv_launches,
+          "morton_codes": int(mx.size), "cg_checkpoint_iterations": it1,
+          "resume_max_abs_diff": resume_err, "trace_files": len(files),
+          "trace_cg_iterations": it_t,
+          "trace_sbell_kernel_names": kernels_traced})
 
 
 def hold(kind, case, kernel, plain, kernel_times):
@@ -3123,8 +3543,9 @@ def check_family_launches(launches: dict) -> None:
                                      f"{rec[kernel]} times, expected {need}")
 
 
-def run(dev):
-    """Phases 1-30 on `dev`; returns the {"kernels": [...]} record."""
+def run(dev, native_build):
+    """Phases 1-30 on `dev`; returns the {"kernels": [...]} record.
+    native_build: the future of the native library's build (seconds)."""
     import torch
 
     from libhpc_tpu_torch.bench import matrices
@@ -3205,6 +3626,8 @@ def run(dev):
     multigrid_phase(dev)
     precision_phase(dev)
     formats_phase(dev)
+    spgemm_phase(dev)
+    runtime_phase(dev, native_build)
     check_family_launches(family)
     library_phase(dev)
     emit({"phase": "launches", "spmv": spmv, "near": near, "far": far,
@@ -3374,6 +3797,18 @@ def main() -> int:
         return _cuda_utils.count_sass("HGMMA"), time.perf_counter() - t0
 
     hgmma_lines = sass.submit(count_hgmma)
+    # the native host library (g++) builds beside the phases too; the
+    # runtime phase waits for it
+    native = ThreadPoolExecutor(1)
+
+    def build_native():
+        from libhpc_tpu_torch.runtime import native as rt
+
+        t0 = time.perf_counter()
+        rt.build()
+        return time.perf_counter() - t0
+
+    native_build = native.submit(build_native)
     # registers and spills of the kernels redesigned last (K18's FMA
     # kernel, K13/K14's one-pass scan, the split search and merge-path
     # kernels of K9/K10/K12, the radix chunk sorts of K8/K11, K21b, the
@@ -3403,7 +3838,8 @@ def main() -> int:
           "cuda": torch.version.cuda, "kernel_build_s": build_s,
           "ptxas_s": ptxas_s,
           "library": str(_cuda_utils.library_path().name), "ptxas": ptxas})
-    kernels = run(dev)
+    kernels = run(dev, native_build)
+    native.shutdown()
     hgmma, sass_s = hgmma_lines.result()
     sass.shutdown()
     if hgmma == 0:

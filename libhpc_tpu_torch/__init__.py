@@ -18,8 +18,11 @@ sums, the tiled transpose, the tiled matmul, the ghost-cell stencils with
 the halo box blur, Morton codes and the hierarchical sparse grids; and the
 micro-architecture suites with the timing harness; the solvers on the
 main path: aggregation AMG on the SBELL kernel, geometric multigrid and
-the compensated reductions; and the other sparse formats: COO, BSR,
-BELL and the banded hybrid with their SpMV and SpMM.
+the compensated reductions; the other sparse formats: COO, BSR,
+BELL and the banded hybrid with their SpMV and SpMM; SpGEMM (scalar:
+ELL-expanded, row-blocked and windowed; and on 8 x 8 blocks); and the
+utilities (configs, validation, checkpoints, profiling ranges), the
+binding of the native host runtime and the benchmark byte models.
 
 Entry points run on the card: builders build on the host and move their
 containers to ``device`` (default ``"cuda"``), and a numpy input to an op
@@ -37,7 +40,10 @@ tensor or ``device="cpu"`` asks for the CPU.
   vertex- and cell-centred V-cycles, ``mg_solve``, ``mg_solve_cc``),
   ``multigrid_sbell`` (``amg_setup``, ``amg_vcycle``, ``amg_pcg``),
   ``precision`` (``sum_compensated``, ``dot_compensated``,
-  ``norm2_compensated``), the kernel wrappers
+  ``norm2_compensated``), ``spgemm`` (``spgemm``, ``spgemm_csr``,
+  ``spgemm_blocked``, ``spgemm_windowed``, ``spgemm_expansion_size``),
+  ``spgemm_bsr`` (``spgemm_bsr``, ``spgemm_bsr_scipy``), the kernel
+  wrappers
   ``spmv_sbell``, ``far_sbell``, ``spmv_dia`` (``DiaPallas``),
   ``spmv_sell`` (``SELL``, ``SELLSplit``) and ``sellp`` (``SELLP``),
   ``solver``, ``sort_merge`` (``merge_sort_u32``), ``sort_merge_kv``
@@ -51,12 +57,19 @@ tensor or ``device="cpu"`` asks for the CPU.
   (``blur_x``, ``blur_y``, ``blur2d``, ``blur2d_pallas``,
   ``poisson5_apply``, ``poisson7_apply`` and the ``*_halo`` stencils).
 - ``libhpc_tpu_torch.containers`` — ``HaloArray``, the ghost-cell array.
-- ``libhpc_tpu_torch.utils``  — Morton codes (``utils.morton``).
+- ``libhpc_tpu_torch.utils``  — Morton codes (``utils.morton``), the
+  config dataclasses (``utils.config``), CSR validation and
+  ``debug_nans`` (``utils.validate``), ``.npz`` checkpoints
+  (``utils.checkpoint``) and profiling ranges and traces
+  (``utils.profiling``).
+- ``libhpc_tpu_torch.runtime`` — ``runtime.native``, the ctypes binding
+  of the repo's ``native/`` host library (arena pool, MatrixMarket
+  loader, host Morton encode, self-test), built into ``_build/native``.
 - ``libhpc_tpu_torch.examples`` — ``amg_solve``, ``poisson_cg`` and
   ``multigrid_demo``, run as ``python -m libhpc_tpu_torch.examples.<name>``.
 - ``libhpc_tpu_torch.bench``  — the deterministic matrix generators, the
-  timing harness (``bench.harness``: ``time_iterated`` and the
-  device-memory probes), the overlap sweep (``bench.overlap_chip``) and
+  timing harness (``bench.harness``: ``time_iterated``, the
+  device-memory probes and the SpMV byte models), the overlap sweep (``bench.overlap_chip``) and
   the micro-architecture probes (``bench.microarch``).
 """
 

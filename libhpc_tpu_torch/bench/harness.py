@@ -1,9 +1,12 @@
-"""Timing harness: the delta method on the card.
+"""Timing harness (the delta method on the card) and the SpMV byte models.
 
-Port of the timing half of ``libhpc_tpu/bench/harness.py``
+Port of ``libhpc_tpu/bench/harness.py``: the timing half
 (``time_iterated``, ``measure_hbm_bandwidth``,
 ``measure_hbm_read_bandwidth``; its scalar probe ``_probe`` is not needed,
-see below, and the byte models after them are not ported yet). Every
+see below) and the byte models (``spmv_bytes``, ``format_spmv_bytes``,
+``format_spmv_rw_bytes``, ``mixed_speed_of_light``, ``BenchResult``,
+``bench_spmv_square``), which count sizes with ``.numel()`` of the port's
+tensors and give the reference's integers for the same container. Every
 timing here
 
   1. chains x -> step_fn(x) M times, eagerly, on the card,
@@ -28,7 +31,9 @@ for the CPU.
 
 from __future__ import annotations
 
+import json
 import time
+from dataclasses import dataclass, field
 
 import torch
 
@@ -106,3 +111,99 @@ def measure_hbm_read_bandwidth(nbytes: int = 1 << 29, dtype=torch.float32,
     per = time_iterated(lambda a, v: a + v.sum(dtype=torch.float32), acc,
                         iters=12, iters_small=2, operand=x)
     return nbytes / per
+
+
+def spmv_bytes(nnz: int, nrows: int, ncols: int, dtype_size: int = 4,
+               index_size: int = 4) -> int:
+    """Minimum device-memory traffic for one CSR SpMV (roofline
+    numerator): values + column indices + one read of x + one write of y
+    + indptr."""
+    return (
+        nnz * (dtype_size + index_size)
+        + ncols * dtype_size
+        + nrows * dtype_size
+        + (nrows + 1) * index_size
+    )
+
+
+def format_spmv_bytes(fmt, obj, nrows: int, ncols: int) -> int:
+    """Per-format traffic model: the bytes the format streams (its stored
+    values + index arrays + x + y), as the reference counts them (4-byte
+    values and indices)."""
+    xy = (nrows + ncols) * 4
+    if fmt == "csr":
+        return spmv_bytes(obj.data.numel(), nrows, ncols)
+    if fmt == "ell":
+        return obj.vals.numel() * (4 + 4) + xy
+    if fmt == "dia":
+        return obj.data.numel() * 4 + obj.ndiags * 4 + xy
+    if fmt == "bell":
+        return obj.blocks.numel() * 4 + obj.indices.numel() * 4 + xy
+    if fmt == "sbell":
+        return obj.hbm_bytes
+    raise KeyError(fmt)
+
+
+def format_spmv_rw_bytes(fmt, obj, nrows: int, ncols: int):
+    """(read_bytes, write_bytes) split of format_spmv_bytes, for the
+    mixed speed of light (SpMV traffic is read-dominated)."""
+    total = format_spmv_bytes(fmt, obj, nrows, ncols)
+    if fmt == "sbell":
+        wr = obj.n_stripes * 1024 * 4
+        far = getattr(obj, "far", None)
+        if far is not None:
+            if hasattr(far, "oh"):       # FarPane: guarded output add
+                wr += far.n_grouped * 8 * 128 * 4
+            else:                        # FarBlocks: touched y rows rmw
+                wr += far.n_far * 8 * 4
+    else:
+        wr = nrows * 4
+    return total - wr, wr
+
+
+def mixed_speed_of_light(bw_read: float, bw_rw: float, rd_bytes: int,
+                         wr_bytes: int) -> float:
+    """Speed of light (bytes/s) of a stream with the given read/write
+    byte mix, from the two probes: per-byte read cost a = 1/bw_read,
+    write cost b = 2/bw_rw - a (the 50/50 probe spends a+b per 2 bytes)."""
+    a = 1.0 / bw_read
+    b = max(2.0 / bw_rw - a, a * 0.5)
+    total = rd_bytes + wr_bytes
+    fr = rd_bytes / total
+    fw = wr_bytes / total
+    return 1.0 / (fr * a + fw * b)
+
+
+@dataclass
+class BenchResult:
+    metric: str
+    value: float
+    unit: str
+    vs_baseline: float
+    extra: dict = field(default_factory=dict)
+
+    def json_line(self) -> str:
+        d = dict(metric=self.metric, value=self.value, unit=self.unit,
+                 vs_baseline=self.vs_baseline)
+        d.update(self.extra)
+        return json.dumps(d)
+
+
+def bench_spmv_square(matvec, x0, nnz: int, nrows: int, ncols: int,
+                      hbm_bytes_per_s: float, iters: int = 32,
+                      bytes_moved: int | None = None) -> dict:
+    """Roofline stats for a square-matrix matvec (chained x -> A @ x).
+
+    bytes_moved defaults to the CSR traffic model; pass the format's own
+    model (format_spmv_bytes) so roofline_fraction stays <= 1."""
+    per = time_iterated(matvec, x0, iters=iters,
+                        iters_small=max(1, iters // 8))
+    if bytes_moved is None:
+        bytes_moved = spmv_bytes(nnz, nrows, ncols)
+    return dict(
+        seconds=per,
+        gflops=2 * nnz / per / 1e9,
+        nnz_per_s=nnz / per,
+        achieved_bytes_per_s=bytes_moved / per,
+        roofline_fraction=(bytes_moved / per) / hbm_bytes_per_s,
+    )

@@ -4,8 +4,9 @@ Port of ``libhpc_tpu/bench/matrices.py``, numpy/scipy as is: `cant` and
 `pwtk` are modeled by deterministic synthetic stand-ins with the same
 structural statistics (size, nnz/row, block structure), so both packages
 build bit-identical matrices from the same seed. If real .mtx files are
-present under $LIBHPC_MATRIX_DIR they are read with scipy.io.mmread (the
-native loader comes with the runtime slice).
+present under $LIBHPC_MATRIX_DIR they are read by the native loader
+(``runtime/native.py``), or by scipy.io.mmread where the native library
+cannot be built or cannot parse the file, as the reference reads them.
 """
 
 from __future__ import annotations
@@ -125,9 +126,14 @@ def load_or_synthesize(name: str) -> sps.csr_matrix:
     mdir = os.environ.get("LIBHPC_MATRIX_DIR", "")
     path = os.path.join(mdir, f"{name}.mtx") if mdir else ""
     if path and os.path.exists(path):
-        import scipy.io as sio
+        from libhpc_tpu_torch.runtime import native
 
-        return sio.mmread(path).tocsr()
+        try:
+            return native.load_mtx_native(path)
+        except (native.NativeUnavailable, OSError):
+            import scipy.io as sio
+
+            return sio.mmread(path).tocsr()
     gen = {"cant": cant_like, "pwtk": pwtk_like}
     if name in gen:
         return gen[name]()

@@ -257,10 +257,16 @@ def check_tensor(t, name: str, device: torch.device, dtypes, shape) -> None:
 
 def as_tensor(x, device) -> torch.Tensor:
     """A numpy array moved to ``device`` (an entry point's default is
-    "cuda"); a torch tensor as it is, on its own device."""
-    if isinstance(x, np.ndarray):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
-    return x
+    "cuda"); a torch tensor as it is, on its own device. Anything else (a
+    list, a tuple, a scalar) becomes an array as ``jnp.asarray`` makes it
+    without x64: Python floats float32, Python ints int32."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if not isinstance(x, np.ndarray):
+        x = np.asarray(x)
+        x = x.astype({np.dtype(np.float64): np.float32,
+                      np.dtype(np.int64): np.int32}.get(x.dtype, x.dtype))
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
 def kernel_device(*tensors: torch.Tensor) -> torch.device:

@@ -7,11 +7,15 @@ traffic over the columns. The reference computes these in XLA, not
 Pallas, so the port computes them with torch ops (gather, batched
 products, ``index_add_``). Its float32 products run in full float32, as
 the reference's ``precision="highest"`` asks: the port sets no TF32 flag.
+``ell_spmm`` and ``bsr_spmm`` return the operator's dtype, as the
+reference's ``preferred_element_type`` does (ops/spmv.py says how).
 """
 
 from __future__ import annotations
 
 import torch
+
+from libhpc_tpu_torch.ops.spmv import _block_dot, _like_operator, _wrap
 
 
 def csr_spmm(csr, B: torch.Tensor) -> torch.Tensor:
@@ -25,8 +29,10 @@ def csr_spmm(csr, B: torch.Tensor) -> torch.Tensor:
 def ell_spmm(ell, B: torch.Tensor) -> torch.Tensor:
     """Y = A @ B, A ELL (m x n) with k slots a row, B dense (n, c): B
     gathered into an (m, k, c) brick, k contracted by a batched product."""
-    gB = B[ell.cols.long()]                               # (m, k, c)
-    return torch.bmm(ell.vals[:, None, :], gB)[:, 0, :]   # mk,mkc->mc
+    dt = ell.vals.dtype
+    gB = _like_operator(B, dt)[ell.cols.long()]           # (m, k, c)
+    prod = _block_dot(ell.vals[:, None, :], gB)[:, 0, :]  # mk,mkc->mc
+    return _wrap(prod, dt)
 
 
 def bsr_spmm(bsr, B: torch.Tensor) -> torch.Tensor:
@@ -35,9 +41,10 @@ def bsr_spmm(bsr, B: torch.Tensor) -> torch.Tensor:
     sum."""
     b = bsr.b
     c = B.shape[1]
-    gB = B.reshape(-1, b, c)[bsr.indices.long()]          # (nblocks, b, c)
-    prod = torch.bmm(bsr.blocks, gB)                      # nij,njc->nic
-    Yb = torch.zeros((bsr.n_block_rows, b, c), dtype=prod.dtype,
-                     device=prod.device)
+    dt = bsr.blocks.dtype
+    gB = _like_operator(B, dt).reshape(-1, b, c)[bsr.indices.long()]
+    prod = _block_dot(bsr.blocks, gB)                     # nij,njc->nic
+    Yb = torch.zeros((bsr.n_block_rows + 1, b, c), dtype=prod.dtype,
+                     device=prod.device)       # + 1: as in bsr_spmv
     Yb.index_add_(0, bsr.block_row_of_block().long(), prod)
-    return Yb.reshape(bsr.shape[0], c)
+    return _wrap(Yb[:-1].reshape(bsr.shape[0], c), dt)

@@ -116,14 +116,17 @@ class BSR(TensorLeaves):
                 .to(torch.int32) - 1)
 
     def todense(self) -> torch.Tensor:
+        """Blocks past indptr[-1] (the one zero block of an empty SpGEMM
+        product) land in an extra block row that is cut off, as the
+        reference's scatter drops them."""
         b = self.b
         nbr = self.n_block_rows
         nbc = self.shape[1] // b
-        out = torch.zeros((nbr, nbc, b, b), dtype=self.blocks.dtype,
+        out = torch.zeros((nbr + 1, nbc, b, b), dtype=self.blocks.dtype,
                           device=self.blocks.device)
         out.index_put_((self.block_row_of_block().long(),
                         self.indices.long()), self.blocks, accumulate=True)
-        return out.permute(0, 2, 1, 3).reshape(self.shape)
+        return out[:nbr].permute(0, 2, 1, 3).reshape(self.shape)
 
     def to_scipy(self):
         import scipy.sparse as sps

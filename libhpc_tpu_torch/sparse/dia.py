@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from libhpc_tpu_torch.ops._cuda_utils import as_tensor
 from libhpc_tpu_torch.sparse._leaves import (TensorLeaves, tensor_from_numpy,
                                              tensor_to_numpy)
 
@@ -91,4 +92,4 @@ class DIA(TensorLeaves):
     def __matmul__(self, x):
         from libhpc_tpu_torch.ops.spmv import dia_spmv
 
-        return dia_spmv(self, x)
+        return dia_spmv(self, as_tensor(x, self.device))

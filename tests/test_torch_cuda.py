@@ -1904,3 +1904,128 @@ def test_multigrid_and_precision_on_card_match_cpu(cuda_device):
     exact = np.dot(a.astype(np.float64), c.astype(np.float64))
     assert abs(float(pr.dot_compensated(a, c)) - exact) \
         <= 1e-6 * abs(exact)
+
+
+# -- SpGEMM, the integer format products, the utilities (no kernel) ---------
+
+def _spgemm_operands():
+    rs = np.random.RandomState(7)
+    A = sps.random(300, 260, density=0.04, format="csr", dtype=np.float32,
+                   random_state=rs)
+    B = sps.random(260, 310, density=0.03, format="csr", dtype=np.float32,
+                   random_state=rs).tolil()
+    B[3, :] = 0
+    return A, B.tocsr()
+
+
+@pytest.mark.parametrize("fn,kw", [("spgemm", {}), ("spgemm_csr", {}),
+                                   ("spgemm_blocked", dict(row_block=64)),
+                                   ("spgemm_windowed", dict(window=512)),
+                                   ("spgemm_windowed", dict(window=512,
+                                                            batch=3))])
+def test_spgemm_on_card_matches_cpu(cuda_device, fn, kw):
+    from libhpc_tpu_torch.ops import spgemm
+    from libhpc_tpu_torch.sparse import CSR
+
+    A, B = _spgemm_operands()
+    got = getattr(spgemm, fn)(CSR.from_scipy(A), CSR.from_scipy(B), **kw)
+    want = getattr(spgemm, fn)(CSR.from_scipy(A, device="cpu"),
+                               CSR.from_scipy(B, device="cpu"), **kw)
+    assert got.device.type == "cuda"
+    dense = got.todense().cpu()
+    torch.testing.assert_close(dense, want.todense(), rtol=1e-5,
+                               atol=1e-5 * float(dense.abs().max()))
+    np.testing.assert_allclose(dense.numpy(), (A @ B).toarray(), rtol=1e-4,
+                               atol=1e-4)
+    if fn == "spgemm_windowed":            # canonical: the same entries
+        assert torch.equal(got.row.cpu(), want.row)
+        assert torch.equal(got.col.cpu(), want.col)
+
+
+@pytest.mark.parametrize("mxu", [True, False])
+def test_spgemm_bsr_on_card_matches_cpu(cuda_device, mxu):
+    from libhpc_tpu_torch.ops import spgemm_bsr, spmv
+    from libhpc_tpu_torch.sparse import BSR
+
+    A = matrices.block_random(60, block=8, blocks_per_row=5, seed=4,
+                              far_fraction=0.1)
+    got = spgemm_bsr.spgemm_bsr(BSR.from_scipy(A), BSR.from_scipy(A),
+                                mxu=mxu, pair_chunk=1000)
+    want = spgemm_bsr.spgemm_bsr(BSR.from_scipy(A, device="cpu"),
+                                 BSR.from_scipy(A, device="cpu"), mxu=mxu,
+                                 pair_chunk=1000)
+    assert got.blocks.device.type == "cuda"
+    assert torch.equal(got.indices.cpu(), want.indices)
+    assert torch.equal(got.indptr.cpu(), want.indptr)
+    torch.testing.assert_close(got.blocks.cpu(), want.blocks, rtol=1e-5,
+                               atol=1e-5 * float(want.blocks.abs().max()))
+    x = np.linspace(-1, 1, A.shape[0]).astype(np.float32)
+    y = spmv.bsr_spmv(got, torch.from_numpy(x).to(cuda_device))
+    np.testing.assert_allclose(y.cpu().numpy(), A @ (A @ x), rtol=1e-4,
+                               atol=1e-4 * np.abs(A @ (A @ x)).max())
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int32, np.uint8, np.int64])
+def test_integer_format_products_run_on_card(cuda_device, dtype):
+    """Integer BSR / BELL / ELL products (and the hybrid's uint32 sum) run
+    on the card, where torch has no integer bmm, and equal the CPU's in
+    value and dtype."""
+    from libhpc_tpu_torch.ops import spmm, spmv
+    from libhpc_tpu_torch.sparse import BELL, BSR, ELL, BandedHybrid
+
+    rs = np.random.RandomState(1)
+    d = rs.randint(0 if dtype == np.uint8 else -3, 4, (64, 64))
+    A = sps.csr_matrix((d * (rs.rand(64, 64) < 0.3)).astype(dtype))
+    x = (np.arange(64) % 7).astype(dtype)
+    X = np.stack([x, x[::-1]], axis=1)
+    calls = {
+        "bsr": lambda dev: spmv.bsr_spmv(BSR.from_scipy(A, block=8,
+                                                        device=dev),
+                                         torch.from_numpy(x).to(dev)),
+        "bell": lambda dev: spmv.bell_spmv(BELL.from_scipy(A, block=8,
+                                                           device=dev),
+                                           torch.from_numpy(x).to(dev)),
+        "ell": lambda dev: spmv.ell_spmv(ELL.from_scipy(A, device=dev),
+                                         torch.from_numpy(x).to(dev)),
+        "hybrid": lambda dev: spmv.hybrid_spmv(
+            BandedHybrid.from_scipy(A, max_diags=4, device=dev),
+            torch.from_numpy(x).to(dev)),
+        "ell_spmm": lambda dev: spmm.ell_spmm(ELL.from_scipy(A, device=dev),
+                                              torch.from_numpy(X).to(dev)),
+        "bsr_spmm": lambda dev: spmm.bsr_spmm(
+            BSR.from_scipy(A, block=8, device=dev),
+            torch.from_numpy(X).to(dev)),
+    }
+    for name, call in calls.items():
+        got, want = call(cuda_device), call("cpu")
+        assert got.device.type == "cuda", name
+        assert got.dtype == want.dtype, name
+        assert torch.equal(got.cpu(), want), name
+    # a float x into an integer operator: converted, on the card too
+    xf = torch.linspace(-2.5, 300.0, 64)
+    bsr = BSR.from_scipy(A, block=8, device="cpu")
+    assert torch.equal(spmv.bsr_spmv(bsr.to(cuda_device),
+                                     xf.to(cuda_device)).cpu(),
+                       spmv.bsr_spmv(bsr, xf))
+
+
+def test_utilities_on_card(cuda_device, tmp_path):
+    """The CSR checks reduce on the card; a checkpoint restores onto it."""
+    import dataclasses
+
+    from libhpc_tpu_torch.sparse import CSR
+    from libhpc_tpu_torch.utils import checkpoint, validate
+
+    csr = CSR.from_scipy(matrices.poisson2d(16))
+    err, _ = validate.csr_invariants_checked(csr)
+    assert err.get() is None
+    bad = dataclasses.replace(csr, indices=csr.indices.clone().fill_(999))
+    err, _ = validate.csr_invariants_checked(bad)
+    with pytest.raises(ValueError, match="column index out of range"):
+        err.throw()
+    state = {"x": torch.arange(5.0, device=cuda_device), "csr": csr}
+    checkpoint.save(str(tmp_path / "s.npz"), state)
+    back = checkpoint.restore(str(tmp_path / "s.npz"), state)
+    assert back["x"].device.type == "cuda" and back["csr"].device.type \
+        == "cuda"
+    assert torch.equal(back["csr"].indices, csr.indices)

@@ -321,3 +321,193 @@ def test_bsr_spmm(rng, shape, c):
                                rtol=1e-4, atol=1e-3)
     _same_as_ref(got, ref_spmm.bsr_spmm(RefBSR.from_scipy(A, block=8),
                                         jnp.asarray(B)))
+
+
+# -- result dtypes and mixed operands (ROADMAP Queue 3, F9-F12) -------------
+
+INT_DTYPES = (np.int8, np.int16, np.int32, np.uint8)
+
+
+def _int_matrix(dtype, n=8, seed=0):
+    """A seeded n x n integer matrix of `dtype`, half its entries zero."""
+    rs = np.random.RandomState(seed)
+    d = rs.randint(-3, 4, (n, n)) * (rs.rand(n, n) < 0.5)
+    return sps.csr_matrix((np.abs(d) if dtype == np.uint8 else d)
+                          .astype(dtype))
+
+
+def _same_exactly(got, want):
+    want = np.asarray(want)
+    got = got.numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", INT_DTYPES)
+def test_ell_and_hybrid_integer_dtypes_match_reference(dtype):
+    """F9: ell_spmv (and hybrid_spmv through it) sum integers as jnp.sum
+    does: int32 for int8 / int16 / int32, uint32 for uint8, wrapping."""
+    from libhpc_tpu.sparse import ELL as RefELL
+    from libhpc_tpu_torch.sparse import ELL
+
+    A = _int_matrix(dtype)
+    x = np.arange(8).astype(dtype)
+    _same_exactly(spmv.ell_spmv(ELL.from_scipy(A, device="cpu"), _t(x)),
+                  ref_spmv.ell_spmv(RefELL.from_scipy(A), jnp.asarray(x)))
+    hyb = BandedHybrid.from_scipy(A, max_diags=2, device="cpu")
+    _same_exactly(spmv.hybrid_spmv(hyb, _t(x)),
+                  ref_spmv.hybrid_spmv(RefHybrid.from_scipy(A, max_diags=2),
+                                       jnp.asarray(x)))
+    # sums past the dtype's range wrap as the reference's do
+    big = {np.int8: 100, np.int16: 30000, np.int32: 2**30, np.uint8: 200}
+    Aw = sps.csr_matrix(np.full((2, 2), big[dtype], dtype))
+    xw = np.full(2, 4 if dtype == np.int32 else big[dtype], dtype)
+    _same_exactly(spmv.ell_spmv(ELL.from_scipy(Aw, device="cpu"), _t(xw)),
+                  ref_spmv.ell_spmv(RefELL.from_scipy(Aw), jnp.asarray(xw)))
+
+
+@pytest.mark.parametrize("dtype", INT_DTYPES)
+def test_block_products_integer_dtypes_match_reference(dtype):
+    """F10: bell_spmv (and bsr_spmv, ell_spmm, bsr_spmm) return the
+    operator's own dtype, wrapping, as the reference's
+    preferred_element_type does."""
+    from libhpc_tpu.sparse import ELL as RefELL
+    from libhpc_tpu_torch.sparse import ELL
+
+    for A in (_int_matrix(dtype),
+              sps.csr_matrix(np.full((4, 4), 100, dtype))):
+        n = A.shape[1]
+        x = (np.arange(n) + 90).astype(dtype)
+        B = np.stack([x, x[::-1]], axis=1)
+        bell, ref_bell = (BELL.from_scipy(A, block=2, device="cpu"),
+                          RefBELL.from_scipy(A, block=2))
+        bsr, ref_bsr = (BSR.from_scipy(A, block=2, device="cpu"),
+                        RefBSR.from_scipy(A, block=2))
+        _same_exactly(spmv.bell_spmv(bell, _t(x)),
+                      ref_spmv.bell_spmv(ref_bell, jnp.asarray(x)))
+        _same_exactly(spmv.bsr_spmv(bsr, _t(x)),
+                      ref_spmv.bsr_spmv(ref_bsr, jnp.asarray(x)))
+        _same_exactly(spmm.ell_spmm(ELL.from_scipy(A, device="cpu"), _t(B)),
+                      ref_spmm.ell_spmm(RefELL.from_scipy(A),
+                                        jnp.asarray(B)))
+        _same_exactly(spmm.bsr_spmm(bsr, _t(B)),
+                      ref_spmm.bsr_spmm(ref_bsr, jnp.asarray(B)))
+
+
+@pytest.mark.parametrize("op_dtype,x_dtype", [
+    (np.float32, np.float64), (np.float32, np.int32),
+    (np.float32, "bfloat16"), (np.int8, np.float32), (np.int32, np.float32),
+    ("bfloat16", np.float32)])
+def test_block_products_take_another_rhs_dtype(op_dtype, x_dtype):
+    """F11: a right-hand side of another dtype than the operator's is
+    converted as the reference converts it (to the operator's dtype, a
+    float saturating into an integer one), not refused."""
+    from libhpc_tpu.sparse import ELL as RefELL
+    from libhpc_tpu_torch.sparse import ELL
+
+    A = _random(16, 16, 0.4, 9)
+    if op_dtype in (np.int8, np.int32):
+        A.data = np.round(A.data * 6 - 3)
+    rs = np.random.RandomState(4)
+    x = (rs.rand(16) * 8 - 4).astype(np.float32)
+    x[3] = 300.0                          # saturates into int8
+    B = np.stack([x, -x], axis=1)
+    ops = {}
+    for name, port_cls, ref_cls, kw in (
+            ("bsr", BSR, RefBSR, dict(block=4)),
+            ("bell", BELL, RefBELL, dict(block=4)),
+            ("ell", ELL, RefELL, {})):
+        ref = _values_astype(ref_cls.from_scipy(A, **kw), op_dtype)
+        ops[name] = (port_of(ref), ref)
+
+    def rhs(a):
+        return (jnp.asarray(a, jnp.bfloat16) if x_dtype == "bfloat16"
+                else jnp.asarray(np.asarray(a).astype(x_dtype)))
+
+    def port_rhs(a):
+        if x_dtype == "bfloat16":
+            return _t(np.asarray(a, np.float32)).to(torch.bfloat16)
+        return _t(np.asarray(a).astype(x_dtype))
+
+    cases = [
+        (spmv.bsr_spmv(ops["bsr"][0], port_rhs(x)),
+         ref_spmv.bsr_spmv(ops["bsr"][1], rhs(x))),
+        (spmv.bell_spmv(ops["bell"][0], port_rhs(x)),
+         ref_spmv.bell_spmv(ops["bell"][1], rhs(x))),
+        (spmm.bsr_spmm(ops["bsr"][0], port_rhs(B)),
+         ref_spmm.bsr_spmm(ops["bsr"][1], rhs(B))),
+        (spmm.ell_spmm(ops["ell"][0], port_rhs(B)),
+         ref_spmm.ell_spmm(ops["ell"][1], rhs(B))),
+    ]
+    if x_dtype != "bfloat16":             # the matmul operators take numpy
+        cases += [(ops["bsr"][0] @ np.asarray(x).astype(x_dtype),
+                   ops["bsr"][1] @ np.asarray(x).astype(x_dtype)),
+                  (ops["bell"][0] @ np.asarray(x).astype(x_dtype),
+                   ops["bell"][1] @ np.asarray(x).astype(x_dtype))]
+    for got, want in cases:
+        want = np.asarray(want)
+        if want.dtype.name == "bfloat16":
+            assert got.dtype == torch.bfloat16
+            np.testing.assert_allclose(got.float().numpy(),
+                                       want.astype(np.float32), rtol=2e-2,
+                                       atol=2e-2 * np.abs(want).max())
+        elif np.issubdtype(want.dtype, np.integer):
+            _same_exactly(got, want)
+        else:
+            _same_as_ref(got, want)
+
+
+def _values_astype(ref, dtype):
+    """The reference container with its values (blocks / vals) in
+    `dtype`."""
+    import dataclasses
+
+    dt = jnp.bfloat16 if dtype == "bfloat16" else dtype
+    name = "vals" if hasattr(ref, "vals") else "blocks"
+    return dataclasses.replace(ref, **{name: getattr(ref, name).astype(dt)})
+
+
+@pytest.mark.parametrize("dtype", INT_DTYPES)
+def test_dia_integer_data_with_float_x(dtype):
+    """F12: dia_spmv / dia_spmv_t of an integer DIA with a float x return
+    the promoted float32, as the reference's do, instead of raising."""
+    from libhpc_tpu.sparse import DIA as RefDIA
+    from libhpc_tpu_torch.sparse import DIA
+
+    A = sps.diags([np.arange(1, 8), np.arange(8) % 3, np.arange(1, 6)],
+                  [-1, 0, 3], shape=(8, 8), format="csr").astype(dtype)
+    x = np.linspace(-1.5, 2.5, 8).astype(np.float32)
+    dia, ref = DIA.from_scipy(A, device="cpu"), RefDIA.from_scipy(A)
+    _same_as_ref(spmv.dia_spmv(dia, _t(x)),
+                 ref_spmv.dia_spmv(ref, jnp.asarray(x)))
+    _same_as_ref(spmv.dia_spmv_t(dia, _t(x)),
+                 ref_spmv.dia_spmv_t(ref, jnp.asarray(x)))
+    _same_as_ref(dia @ x, ref @ x)
+    xi = np.arange(8).astype(dtype)
+    _same_exactly(spmv.dia_spmv(dia, _t(xi)),
+                  ref_spmv.dia_spmv(ref, jnp.asarray(xi)))
+
+
+def test_matmul_takes_a_list_and_numpy_on_the_operator_device():
+    """F12: every container's @ takes a Python list as jnp.asarray does
+    (floats float32), and DIA @ moves a numpy x to the DIA's device (a
+    meta-device DIA shows the move without a card)."""
+    from libhpc_tpu.sparse import DIA as RefDIA
+    from libhpc_tpu_torch.sparse import DIA
+
+    A = poisson2d(4)
+    xs = [float(v) for v in np.linspace(-1.0, 1.0, 16)]
+    for port, ref in ((CSR.from_scipy(A, device="cpu"), RefCSR.from_scipy(A)),
+                      (BSR.from_scipy(A, block=4, device="cpu"),
+                       RefBSR.from_scipy(A, block=4)),
+                      (BELL.from_scipy(A, block=4, device="cpu"),
+                       RefBELL.from_scipy(A, block=4)),
+                      (BandedHybrid.from_scipy(A, device="cpu"),
+                       RefHybrid.from_scipy(A)),
+                      (DIA.from_scipy(A, device="cpu"),
+                       RefDIA.from_scipy(A))):
+        _same_as_ref(port @ xs, ref @ xs)
+    meta = DIA.from_scipy(A, device="cpu").to("meta")
+    y = meta @ np.ones(16, np.float32)
+    assert y.device.type == "meta" and y.shape == (16,)
+    assert y.dtype == torch.float32

@@ -43,6 +43,8 @@ MODULES = [
     "libhpc_tpu_torch.ops.spmv",
     "libhpc_tpu_torch.ops.solver",
     "libhpc_tpu_torch.ops.spmm",
+    "libhpc_tpu_torch.ops.spgemm",
+    "libhpc_tpu_torch.ops.spgemm_bsr",
     "libhpc_tpu_torch.ops.precision",
     "libhpc_tpu_torch.ops.multigrid",
     "libhpc_tpu_torch.ops.multigrid_sbell",
@@ -64,6 +66,12 @@ MODULES = [
     "libhpc_tpu_torch.sparse.grid",
     "libhpc_tpu_torch.utils",
     "libhpc_tpu_torch.utils.morton",
+    "libhpc_tpu_torch.utils.config",
+    "libhpc_tpu_torch.utils.validate",
+    "libhpc_tpu_torch.utils.checkpoint",
+    "libhpc_tpu_torch.utils.profiling",
+    "libhpc_tpu_torch.runtime",
+    "libhpc_tpu_torch.runtime.native",
     "libhpc_tpu_torch.bench",
     "libhpc_tpu_torch.bench.matrices",
     "libhpc_tpu_torch.bench.harness",
@@ -90,18 +98,27 @@ def test_modules_listed_are_all_modules():
 
 
 def test_import_pulls_in_no_jax_triton_or_build():
+    # _build/native is left out of the comparison: test_torch_native.py
+    # builds the native library there, maybe while this test runs
     code = textwrap.dedent(f"""
         import importlib, os, sys
         build = os.path.join({REPO!r}, "libhpc_tpu_torch", "_build")
-        before = os.path.exists(build)
+
+        def built():
+            if not os.path.isdir(build):
+                return set()
+            return set(os.listdir(build)) - {{"native"}}
+
+        before = built()
         for m in {MODULES!r}:
             importlib.import_module(m)
         bad = sorted(m for m in ("jax", "jaxlib", "triton")
                      if m in sys.modules)
         assert not bad, bad
-        assert os.path.exists(build) == before, "import created _build/"
+        assert built() == before, "import built into _build/"
         from libhpc_tpu_torch.ops import _cuda_utils
-        assert _cuda_utils._LIB is None
+        from libhpc_tpu_torch.runtime import native
+        assert _cuda_utils._LIB is None and native._lib is None
         import torch
         assert not torch.cuda.is_initialized(), "import touched CUDA"
         print("ok")
@@ -295,7 +312,7 @@ def _aims_at_the_card(fn):
 
 
 def _builders():
-    from libhpc_tpu_torch.ops import multigrid_sbell
+    from libhpc_tpu_torch.ops import multigrid_sbell, spgemm_bsr
     from libhpc_tpu_torch.sparse import BELL, BSR, COO, CSR, ELL, auto
     from libhpc_tpu_torch.sparse import BandedHybrid
 
@@ -325,6 +342,7 @@ def _builders():
         "BELL.from_scipy": lambda: BELL.from_scipy(A),
         "BandedHybrid.from_scipy": lambda: BandedHybrid.from_scipy(A),
         "amg_setup": lambda: multigrid_sbell.amg_setup(A),
+        "spgemm_bsr_scipy": lambda: spgemm_bsr.spgemm_bsr_scipy(A, A),
     }
 
 
@@ -333,7 +351,7 @@ BUILDERS = ["BlockGrid.create", "NestedGrid.create", "CSR.from_scipy", "CSR.from
             "sell_from_ell", "sell_from_scipy", "sellp_from_scipy",
             "DiaPallas.from_dia", "COO.from_scipy", "COO.from_dense",
             "BSR.from_scipy", "BSR.from_dense", "BELL.from_scipy",
-            "BandedHybrid.from_scipy", "amg_setup"]
+            "BandedHybrid.from_scipy", "amg_setup", "spgemm_bsr_scipy"]
 
 
 @pytest.mark.parametrize("name", BUILDERS)
