@@ -8,7 +8,10 @@ size of the two FEM matrices the repository models (cant_like: 62,000 rows,
 seeds), and its CSR half (csr_spmv + CG on the shifted 1024x1024 Poisson).
 Then the solver family on that path: aggregation AMG, whose every smoothing
 sweep runs the SBELL SpMV kernel, geometric multigrid and the compensated
-reductions, and the other sparse formats (COO, BSR, BELL, the banded
+reductions, the distributed layer on a one-rank NCCL group (DistSBELL,
+DistDIA, DistCSR, the 2-D SpMV, the halo stencils, distributed AMG-PCG and
+the dry run; every shard of an 8-way DistSBELL partition held on the one
+card), and the other sparse formats (COO, BSR, BELL, the banded
 hybrid) with their SpMV and SpMM, SpGEMM (windowed and on 8 x 8 blocks at
 pwtk_like size) and the utilities with the native host runtime.
 Then the second entry point, sparse.auto_format, and the rest of the SpMV
@@ -183,24 +186,44 @@ the script started (t_s):
                host clock; the SpMV of every SBELL level of the hierarchy
                (the containers the V-cycle launches on) against its plain
                version, the fine one also against scipy
- 29b multigrid mg_solve on 4095^2 and mg_solve_cc on 4096^2 (f from seed
+ 29b dist      the distributed layer (libhpc_tpu_torch/parallel/) on a
+               one-rank NCCL group over a file store: DistSBELL at one
+               shard on cant_like and pwtk_like through dist_sbell_spmv_fn
+               (exactly two SBELL kernel launches a matvec, gated against
+               scipy and held to the single-card sbell_spmv; event times
+               beside it and the all_gather alone), every shard of an
+               8-way partition through shard_matvec with the global x (16
+               launches, the joined y gated; each shard's diag and offd
+               launch against near_out_panes_torch, with its graph-replay
+               time and its tile stream's shape); DistDIA matvec and 32
+               dist_dia_cg iterations on Poisson 3072^2 + I/2; dist_cg on
+               Poisson 1024^2 + I/2; dist_blur2d_fn at 8192^2, r = 8,
+               overlap off and on, against K19 (1e-3), and
+               bench/overlap.run; dist_poisson_fn; dist2d_spmv_fn on a
+               (1, 1) mesh; dist_amg_pcg on spd(cant_like) (launches held
+               to 10 (iterations + 1), the amg phase's residual gate);
+               dryrun_multichip(1); then the one-shard matvec's CUPTI
+               split (its two SBELL launches, the NCCL all_gather, the
+               torch ops left) in a child process (chip_smoke.py
+               --dist-split, a fresh profiler)
+ 29c multigrid mg_solve on 4095^2 and mg_solve_cc on 4096^2 (f from seed
                0), 10 V-cycles each in float32, the residual recomputed in
                float64 on the card within 2x of the float32 floor (the
                float64 solution rounded to float32); a V-cycle's time
                (events and graph replay);
                r2 / r1 in float32 and float64; the reference tests'
                contraction r2 < 0.35 r1 / 0.4 r1 at 1023^2 / 1024^2
- 29c precision sum_compensated on test_precision.py's adversarial set at
+ 29d precision sum_compensated on test_precision.py's adversarial set at
                2^26 elements and dot_compensated on 2^26 of its operands
                joined by pairs that cancel their rounded products, against
                float64 on the card, each error also at most plain's
                (torch.sum) or a quarter of it (torch.dot), with times
- 29d formats   COO, BSR (8 x 8) and BELL SpMV and csr_spmv_t on cant_like,
+ 29e formats   COO, BSR (8 x 8) and BELL SpMV and csr_spmv_t on cant_like,
                BandedHybrid on Poisson 1024^2 (natural order and RCM), and
                the corpus's SpMM cases spmm_ell_poisson512_k64 and
                spmm_bsr_cant_k64 (corpus.py:296-326), each against scipy
                at 2e-3, with times beside the torch.sparse CSR product
- 29e spgemm    SpGEMM (no kernel of its own): pwtk_like A @ A windowed at
+ 29f spgemm    SpGEMM (no kernel of its own): pwtk_like A @ A windowed at
                2^22 slots a window (the reference's spgemm_pwtk_10m: 658.7M
                products, 158 windows in batches of 8; seconds, G
                products/s, the device time by CUDA events around each
@@ -212,7 +235,7 @@ the script started (t_s):
                first); each gated against scipy's product (max |C - A A| <
                1e-2 over both entry sets, the windowed form with scipy's
                nnz), timed beside torch.sparse.mm; no TF32 flag on
- 29f runtime   the native host library (built by runtime/native.py in a
+ 29g runtime   the native host library (built by runtime/native.py in a
                thread beside the phases) and its self-test, an ArenaPool
                round trip, cant_like written to a .mtx and read by
                load_mtx_native (equal to scipy.io.mmread) into an SBELL
@@ -242,6 +265,7 @@ needs CUDA and the repository beside it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -987,8 +1011,382 @@ def amg_phase(dev) -> list:
              dict(n_levels=4, coarse_max=3000), 5000, AMG_GATE_POISSON)):
         rec, solve = amg_system(name, A_s, dev, kw, cg_max, gate_rel)
         total += solve
+        AMG_RECORDS[name] = rec
         emit(rec)
     return [int(v) for v in total]
+
+
+DIST_SHARDS = 8          # the partition held shard by shard on the one card
+DIST_GROUP_TIMEOUT_S = 120
+# the amg phase's records by system, read by the dist phase
+AMG_RECORDS: dict = {}
+
+
+def dist_sbell_case(name, A, mesh, dev) -> tuple:
+    """DistSBELL of matrix `name` at one shard through dist_sbell_spmv_fn
+    (the main path: two SBELL kernel launches a matvec, counted), gated
+    against scipy and held to the single-card sbell_spmv, timed beside it
+    and beside the all_gather alone; then every shard of a DIST_SHARDS-way
+    partition through shard_matvec with the global x as xg (launches
+    counted, the joined y gated against scipy), each shard's diag and offd
+    launch held against near_out_panes_torch on its own SBELL (these
+    compare; they are not counted). Returns (record, counted launches)."""
+    import numpy as np
+    import torch
+
+    from libhpc_tpu_torch.ops import far_sbell, spmv_sbell
+    from libhpc_tpu_torch.parallel.collectives import all_gather
+    from libhpc_tpu_torch.parallel.dist_sbell import (DistSBELL,
+                                                      dist_sbell_spmv_fn,
+                                                      shard_matvec)
+    from libhpc_tpu_torch.sparse.sbell import SBELL
+
+    def zero():
+        torch.cuda.synchronize()
+        spmv_sbell.SPMV_LAUNCHES = spmv_sbell.NEAR_LAUNCHES = 0
+        far_sbell.FAR_LAUNCHES = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return (spmv_sbell.SPMV_LAUNCHES, spmv_sbell.NEAR_LAUNCHES,
+                far_sbell.FAR_LAUNCHES)
+
+    m, n = A.shape
+    x = np.linspace(-1.0, 1.0, n, dtype=np.float32)
+    oracle = A @ x
+    t0 = time.perf_counter()
+    host1 = DistSBELL.from_scipy(A, 1)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    d1 = host1.shard(mesh)
+    torch.cuda.synchronize()
+    shard_mem = torch.cuda.memory_allocated() - mem0
+    build1_s = time.perf_counter() - t0
+    b1 = d1.blocks
+    block_tensors = [v for c in (b1.diag, b1.offd, b1.far) if c is not None
+                     for v in vars(c).values() if isinstance(v, torch.Tensor)]
+    block_bytes = nbytes(*block_tensors)
+    # the card holds the shard once: its ShardSBELL, the stacked leaves on
+    # the host. The caching allocator may hand a tensor a cached block up to
+    # 1 MiB larger than asked (512 B under 1 MiB), and counts the block.
+    slack = sum(1 << 20 if nbytes(t) >= 1 << 20 else 512
+                for t in block_tensors)
+    if shard_mem > block_bytes + slack or d1.diag_vflat.is_cuda:
+        raise AssertionError(f"{name}: .shard() took {shard_mem} B of "
+                             f"device memory for {block_bytes} B of blocks "
+                             f"(allocator slack {slack} B)")
+    matvec = dist_sbell_spmv_fn(d1, mesh)
+    xd = torch.nn.functional.pad(torch.from_numpy(x).to(dev),
+                                 (0, d1.shape[1] - n))
+    zero()
+    y = matvec(xd)
+    launched = counts()
+    if launched != (2, 0, 0):
+        raise AssertionError(f"{name}: a DistSBELL matvec launched (fused, "
+                             f"near, far) {launched}, expected (2, 0, 0)")
+    gate(y[:m], oracle, f"{name} dist_sbell_spmv")
+    sb = SBELL.from_scipy(A, device=dev)
+    xs = torch.from_numpy(x).to(dev)
+    y1 = spmv_sbell.sbell_spmv(sb, xs)
+    assert_close(y[:m], y1, f"{name} dist_sbell_spmv vs sbell_spmv",
+                 TOL_PLAIN, TOL_PLAIN)
+    t_dist = time_ms(lambda: matvec(xd))
+    t_single = time_ms(lambda: spmv_sbell.sbell_spmv(sb, xs))
+    t_gather = time_ms(lambda: all_gather(xd, "x", mesh=mesh))
+    total = 2
+
+    t0 = time.perf_counter()
+    d8 = DistSBELL.from_scipy(A, DIST_SHARDS)
+    build8_s = time.perf_counter() - t0
+    rl = d8.rows_local
+    xg = torch.nn.functional.pad(xs, (0, d8.shape[1] - n))
+    blocks = [d8.shard_blocks(s, dev) for s in range(DIST_SHARDS)]
+    zero()
+    ys = [shard_matvec(b, xg[s * rl:(s + 1) * rl], xg)
+          for s, b in enumerate(blocks)]
+    launched = counts()
+    if launched != (2 * DIST_SHARDS, 0, 0):
+        raise AssertionError(f"{name}: {DIST_SHARDS} shards launched "
+                             f"{launched}, expected ({2 * DIST_SHARDS}, 0, 0)")
+    total += 2 * DIST_SHARDS
+    y8 = torch.cat(ys)
+    gate(y8[:m], oracle, f"{name} {DIST_SHARDS} shards' shard_matvec")
+    shards = []
+    for s, b in enumerate(blocks):
+        rec = {"shard": s, "far_blocks": int(b.far.n_far) if b.far is not None
+               else 0}
+        for part, sbs, v in (("diag", b.diag, xg[s * rl:(s + 1) * rl]),
+                             ("offd", b.offd, xg)):
+            x3 = spmv_sbell.x_to_panes(sbs, v)
+            got = spmv_sbell.sbell_spmv_panes(sbs, x3).reshape(-1, 128)
+            want = spmv_sbell.near_out_panes_torch(sbs, x3)
+            assert_close(got, want, f"{name} shard {s} {part} vs plain",
+                         TOL_PLAIN, TOL_PLAIN)
+            rec[part] = {
+                "n_tiles": sbs.n_tiles, "real_tiles": int(sbs.tile_ptr[-1]),
+                "k_max": sbs.k_max, "n_stripes": sbs.n_stripes,
+                "n_panes": sbs.n_panes, "max_abs_err_vs_plain":
+                max_err(got, want),
+                "graph_ms": graph_each_ms(
+                    lambda: spmv_sbell.sbell_spmv_panes(sbs, x3))}
+        shards.append(rec)
+    rec = {"phase": "dist", "case": "dist_sbell", "matrix": name,
+           "rows": m, "nnz": int(A.nnz), "build_1_shard_s": build1_s,
+           "build_8_shards_s": build8_s, "has_far": d1.has_far,
+           "shard_device_bytes": shard_mem, "shard_block_bytes": block_bytes,
+           "shard_allocator_slack_bytes": slack,
+           "far_blocks_1_shard": int(d1.far_rows.shape[1]),
+           "launches_a_matvec": 2,
+           "max_abs_err_vs_scipy": float(np.abs(y[:m].cpu().numpy()
+                                                - oracle).max()),
+           "max_abs_err_vs_sbell_spmv": max_err(y[:m], y1),
+           "dist_matvec_event_ms": t_dist,
+           "sbell_spmv_event_ms": t_single,
+           "all_gather_event_ms": t_gather,
+           "all_gather_share": t_gather / t_dist,
+           "shards_8_max_abs_err_vs_scipy": float(np.abs(
+               y8[:m].cpu().numpy() - oracle).max()),
+           "shards_8_rows_local": rl, "shards_8": shards}
+    return rec, total
+
+
+def dist_paths(mesh, dev) -> int:
+    """The other distributed paths on the one-rank mesh, each gated:
+    DistDIA (Poisson 3072^2 + I/2: matvec, 32 CG iterations), DistCSR
+    dist_cg (Poisson 1024^2 + I/2, 32 iterations), dist_blur2d_fn at
+    8192^2, r = 8, overlap off and on (and bench/overlap.run),
+    dist_poisson_fn, dist2d_spmv_fn on a (1, 1) mesh, dist_amg_pcg on
+    spd(cant_like) (its launches counted and held to the solve's matvecs),
+    dryrun_multichip(1). Returns the AMG solve's SBELL launches."""
+    import numpy as np
+    import scipy.sparse as sps
+    import torch
+
+    from libhpc_tpu_torch.bench import matrices, overlap
+    from libhpc_tpu_torch.dryrun import dryrun_multichip
+    from libhpc_tpu_torch.ops import spmv_sbell, stencil
+    from libhpc_tpu_torch.parallel.dist2d import Dist2DCSR, dist2d_spmv_fn
+    from libhpc_tpu_torch.parallel.dist_amg import dist_amg_pcg
+    from libhpc_tpu_torch.parallel.dist_dia import (DistDIA, dist_dia_cg,
+                                                    dist_dia_spmv_fn)
+    from libhpc_tpu_torch.parallel.dist_spmv import (DistCSR, dist_cg,
+                                                     dist_spmv_fn)
+    from libhpc_tpu_torch.parallel.dist_stencil import (dist_blur2d_fn,
+                                                        dist_poisson_fn)
+    from libhpc_tpu_torch.parallel.mesh import make_mesh_2d
+
+    def cg_record(system, As, build, solve):
+        out = {}
+        t0 = time.perf_counter()
+        dA = build(As)
+        build_s = time.perf_counter() - t0
+        n = As.shape[0]
+        x = np.linspace(-1.0, 1.0, n, dtype=np.float32)
+        xd = torch.from_numpy(x).to(dev)
+        mv = solve[0](dA)
+        gate(mv(xd), As @ x, f"{system} matvec")
+        b = torch.ones(n, device=dev)
+
+        def run():
+            out["r"] = solve[1](dA, b)
+
+        ms = wall_ms(run)
+        xs, it, _ = out["r"]
+        r = np.ones(n) - As @ xs.cpu().numpy().astype(np.float64)
+        if not (it == 32 and np.isfinite(r).all()
+                and np.linalg.norm(r) < 1e-3 * np.sqrt(n)):
+            raise AssertionError(f"{system}: {it} iterations, residual "
+                                 f"{np.linalg.norm(r)}")
+        emit({"phase": "dist", "case": system, "rows": n,
+              "nnz": int(As.nnz), "build_s": build_s,
+              "matvec_event_ms": time_ms(lambda: mv(xd)), "iterations": it,
+              "ms": ms, "ms_per_iteration": ms / it,
+              "residual": float(np.linalg.norm(r))})
+
+    def shifted(A):
+        return (A + sps.eye(A.shape[0], dtype=np.float32) * 0.5).tocsr()
+
+    cg_record("dist_dia_cg poisson2d(3072)+I/2", shifted(
+        matrices.poisson2d(3072)),
+        lambda As: DistDIA.from_scipy(As, 1).shard(mesh),
+        (lambda dA: dist_dia_spmv_fn(dA, mesh),
+         lambda dA, b: dist_dia_cg(dA, b, mesh, tol=0.0, max_iter=32)))
+    cg_record("dist_cg poisson2d(1024)+I/2", shifted(
+        matrices.poisson2d(1024)),
+        lambda As: DistCSR.from_scipy(As, 1).shard(mesh),
+        (lambda dA: dist_spmv_fn(dA, mesh),
+         lambda dA, b: dist_cg(dA, b, mesh, tol=0.0, max_iter=32)))
+
+    r = 8
+    a = rand_on((DENSE_N, DENSE_N), dev, DENSE_SEED + 4)
+    k19 = stencil.blur2d_pallas(a, r)
+    blur = {}
+    for ov in (False, True):
+        f = dist_blur2d_fn(mesh, radius=r, overlap=ov)
+        got = f(a)
+        key = "overlapped" if ov else "unoverlapped"
+        assert_close(got, k19, f"dist_blur2d_fn overlap={ov} vs K19", 1e-3,
+                     1e-3)
+        blur[f"{key}_max_abs_err_vs_k19"] = max_err(got, k19)
+    del k19
+    eff = overlap.run(1, DENSE_N, DENSE_N, r, "cuda")
+    u = a[:2048, :2048].contiguous()
+    p5 = dist_poisson_fn(mesh)(u)
+    assert_close(p5, stencil.poisson5_apply(u), "dist_poisson_fn",
+                 TOL_PLAIN, TOL_PLAIN)
+    emit({"phase": "dist", "case": "stencils", "blur_shape": [DENSE_N,
+                                                               DENSE_N],
+          "radius": r, **blur, "overlap_efficiency": eff,
+          "poisson_2048_max_abs_err": max_err(p5, stencil.poisson5_apply(u)),
+          "poisson_2048_event_ms": time_ms(
+              lambda: dist_poisson_fn(mesh)(u))})
+    del a, u, p5
+
+    A = matrices.poisson2d(1024)
+    mesh2 = make_mesh_2d(1, 1, ("py", "px"), device_type="cuda")
+    d2 = Dist2DCSR.from_scipy(A, (1, 1)).shard(mesh2)
+    x = np.linspace(-1.0, 1.0, A.shape[1], dtype=np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    mv2 = dist2d_spmv_fn(d2, mesh2, realign=True)
+    gate(mv2(xd), A @ x, "dist2d_spmv_fn (1, 1)")
+    emit({"phase": "dist", "case": "dist2d_spmv poisson2d(1024) (1, 1)",
+          "event_ms": time_ms(lambda: mv2(xd))})
+
+    As = spd_from(matrices.load_or_synthesize("cant"))
+    b = np.random.default_rng(AMG_SEED).standard_normal(As.shape[0]) \
+        .astype(np.float32)
+    torch.cuda.synchronize()
+    spmv_sbell.SPMV_LAUNCHES = spmv_sbell.NEAR_LAUNCHES = 0
+    t0 = time.perf_counter()
+    xa, it, _ = dist_amg_pcg(As, mesh, 1, b, tol=1e-6, max_iter=200)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launched = (spmv_sbell.SPMV_LAUNCHES, spmv_sbell.NEAR_LAUNCHES)
+    # pcg_op: it + 1 fine matvecs and it + 1 V-cycles of 4 matvecs (pre
+    # = post = 2), two SBELL launches a matvec
+    want = 2 * 5 * (it + 1)
+    if launched != (want, 0):
+        raise AssertionError(f"dist AMG-PCG: {it} iterations launched "
+                             f"{launched}, expected ({want}, 0)")
+    res = np.linalg.norm(b.astype(np.float64) - As @ xa[:As.shape[0]]
+                         .cpu().numpy().astype(np.float64))
+    limit = AMG_GATE * max(np.linalg.norm(b), 1.0)
+    if not (np.isfinite(res) and res <= limit and 0 < it < 200):
+        raise AssertionError(f"dist AMG-PCG: {it} iterations, true "
+                             f"residual {res} > {limit}")
+    single = AMG_RECORDS.get("spd(cant_like)", {})
+    emit({"phase": "dist", "case": "dist_amg_pcg spd(cant_like)",
+          "rows": As.shape[0], "iterations": it, "true_residual": float(res),
+          "gate": float(limit), "launches": want,
+          "setup_and_solve_s": solve_s,
+          "amg_pcg_iterations": single.get("pcg_iterations"),
+          "amg_pcg_true_residual": single.get("true_residual")})
+
+    recs = dryrun_multichip(1)
+    emit({"phase": "dist", "case": "dryrun_multichip(1)", "record": recs})
+    return want
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """A one-rank NCCL process group over a file store in a fresh
+    directory, destroyed on the way out; yields its 1-D mesh."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from libhpc_tpu_torch.parallel.mesh import make_mesh_1d
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group(
+        "nccl", init_method=f"file://{store}/store", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=DIST_GROUP_TIMEOUT_S))
+    try:
+        yield make_mesh_1d(1, device_type="cuda")
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+DIST_SPLIT_ARG = "--dist-split"
+
+
+def dist_split_profile() -> dict:
+    """CUPTI device time of the one-shard DistSBELL matvec on cant_like and
+    pwtk_like, split into its two SBELL kernel launches, the NCCL
+    all_gather and the torch ops left (the flat API's pads and pane
+    transposes, the far set's far_spmv, the adds), in a process of its own
+    (chip_smoke.py --dist-split): late in the main process the profiler
+    loses records."""
+    import numpy as np
+    import torch
+
+    from libhpc_tpu_torch.bench import matrices
+    from libhpc_tpu_torch.parallel.dist_sbell import (DistSBELL,
+                                                      dist_sbell_spmv_fn)
+
+    dev = torch.device("cuda")
+    out = {"phase": "dist_split"}
+    with one_rank_group() as mesh:
+        for name in ("cant", "pwtk"):
+            A = matrices.load_or_synthesize(name)
+            d1 = DistSBELL.from_scipy(A, 1).shard(mesh)
+            matvec = dist_sbell_spmv_fn(d1, mesh)
+            x = np.zeros(d1.shape[1], np.float32)
+            x[:A.shape[1]] = np.linspace(-1.0, 1.0, A.shape[1])
+            xd = torch.from_numpy(x).to(dev)
+            total, split = device_ms(lambda: matvec(xd),
+                                     want={"sbell_spmv_kernel": 2})
+            sbell = sum(v for k, v in split.items() if "sbell_spmv" in k)
+            nccl = sum(v for k, v in split.items() if "nccl" in k)
+            out[f"{name}_like"] = {
+                "device_ms": total, "sbell_kernels_ms": sbell,
+                "all_gather_ms": nccl,
+                "other_ms": total - sbell - nccl if total else None,
+                "other_ops": sorted(k[:60] for k in split
+                                    if "sbell_spmv" not in k
+                                    and "nccl" not in k)}
+    return out
+
+
+def dist_split_phase() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          DIST_SPLIT_ARG], capture_output=True, text=True,
+                         timeout=300)
+    if res.returncode != 0:
+        raise AssertionError(f"dist_split: the profiling process failed "
+                             f"({res.returncode}): {res.stderr[-3000:]}")
+    emit(json.loads(res.stdout.strip().splitlines()[-1]))
+
+
+def dist_phase(dev) -> int:
+    """Phase 29b: the distributed layer on a one-rank NCCL process group,
+    then the one-shard matvec's CUPTI split in a child process. Returns
+    the SBELL kernel launches of its counted paths."""
+    from libhpc_tpu_torch.bench import matrices
+
+    t_phase = time.perf_counter()
+    with one_rank_group() as mesh:
+        launches = 0
+        for name in ("cant", "pwtk"):
+            rec, n = dist_sbell_case(f"{name}_like",
+                                     matrices.load_or_synthesize(name), mesh,
+                                     dev)
+            emit(rec)
+            launches += n
+        launches += dist_paths(mesh, dev)
+    dist_split_phase()
+    emit({"phase": "dist", "case": "total", "sbell_launches": launches,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
 
 
 def multigrid_phase(dev) -> None:
@@ -3623,6 +4021,7 @@ def run(dev, native_build):
     # phases before (the formats phase calls torch.sparse, cuSPARSE): the
     # AMG solves' checked launches join the main path's K1-K3 counts
     amg_fused, amg_far, amg_near = amg_phase(dev)
+    dist_launches = dist_phase(dev)
     multigrid_phase(dev)
     precision_phase(dev)
     formats_phase(dev)
@@ -3633,6 +4032,7 @@ def run(dev, native_build):
     emit({"phase": "launches", "spmv": spmv, "near": near, "far": far,
           "matvecs": matvecs, "amg_pcg_fused": amg_fused,
           "amg_pcg_fused_far_pane": amg_far, "amg_pcg_near": amg_near,
+          "dist": dist_launches,
           **family})
     torch.cuda.synchronize()
 
@@ -3674,19 +4074,21 @@ def run(dev, native_build):
     return {"kernels": [
         # K1/K2 and K3 are modes of one kernel; the main path runs their
         # functions fused, one launch a matvec: each row counts the
-        # launches that ran its function (the CG path's and the AMG
-        # solves'; K3's only where a FarPane was fused in), and times its
+        # launches that ran its function (the CG path's, the AMG solves'
+        # and the distributed paths' (two near launches a DistSBELL
+        # matvec); K3's only where a FarPane was fused in), and times its
         # mode alone
         entry("near", "sbell_near", spmv_src,
               "libhpc_tpu/ops/spmv_pallas.py:59",
-              spmv + amg_fused + amg_near, cant),
+              spmv + amg_fused + amg_near + dist_launches, cant),
         entry("near", "sbell_near_ranged", spmv_src,
               "libhpc_tpu/ops/spmv_pallas.py:92",
-              spmv + amg_fused + amg_near, cant),
+              spmv + amg_fused + amg_near + dist_launches, cant),
         entry("far", "far_pane", spmv_src,
               "libhpc_tpu/ops/far_pallas.py:33", spmv + amg_far, cant),
         entry("spmv", "sbell_spmv_fused", spmv_src,
-              "libhpc_tpu/ops/spmv_pallas.py:59", spmv + amg_fused, cant),
+              "libhpc_tpu/ops/spmv_pallas.py:59",
+              spmv + amg_fused + dist_launches, cant),
         entry("dia", "dia", dia_src, "libhpc_tpu/ops/dia_pallas.py:100",
               family["dia"]["dia"] + family["dia_cg"]["dia"],
               ["poisson3072"]),
@@ -3780,6 +4182,9 @@ def main() -> int:
 
     if sys.argv[1:] == [SORT_SPLIT_ARG]:
         emit(sort_split_profile())
+        return 0
+    if sys.argv[1:] == [DIST_SPLIT_ARG]:
+        emit(dist_split_profile())
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

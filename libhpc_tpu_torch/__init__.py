@@ -22,7 +22,11 @@ the compensated reductions; the other sparse formats: COO, BSR,
 BELL and the banded hybrid with their SpMV and SpMM; SpGEMM (scalar:
 ELL-expanded, row-blocked and windowed; and on 8 x 8 blocks); and the
 utilities (configs, validation, checkpoints, profiling ranges), the
-binding of the native host runtime and the benchmark byte models.
+binding of the native host runtime and the benchmark byte models; and
+the distributed layer on ``torch.distributed`` (``parallel``: meshes,
+collectives, halo exchange, the row- and 2-D-partitioned SpMVs with their
+CG and AMG-PCG, the distributed stencils), its dry run (``dryrun``) and
+its overlap and weak-scaling benches.
 
 Entry points run on the card: builders build on the host and move their
 containers to ``device`` (default ``"cuda"``), and a numpy input to an op
@@ -65,12 +69,20 @@ tensor or ``device="cpu"`` asks for the CPU.
 - ``libhpc_tpu_torch.runtime`` — ``runtime.native``, the ctypes binding
   of the repo's ``native/`` host library (arena pool, MatrixMarket
   loader, host Morton encode, self-test), built into ``_build/native``.
-- ``libhpc_tpu_torch.examples`` — ``amg_solve``, ``poisson_cg`` and
-  ``multigrid_demo``, run as ``python -m libhpc_tpu_torch.examples.<name>``.
+- ``libhpc_tpu_torch.parallel`` — ``mesh`` (``make_mesh_1d``,
+  ``make_mesh_2d``, the rank launcher ``launch`` / ``RankPool``),
+  ``collectives``, ``halo``, ``dist_spmv`` (``DistCSR``), ``dist_dia``
+  (``DistDIA``), ``dist2d`` (``Dist2DCSR``), ``dist_stencil``,
+  ``dist_sbell`` (``DistSBELL``), ``dist_amg`` and ``programs``; and
+  ``libhpc_tpu_torch.dryrun`` (``dryrun_multichip``).
+- ``libhpc_tpu_torch.examples`` — ``amg_solve``, ``distributed_spmv``,
+  ``poisson_cg`` and ``multigrid_demo``, run as
+  ``python -m libhpc_tpu_torch.examples.<name>``.
 - ``libhpc_tpu_torch.bench``  — the deterministic matrix generators, the
   timing harness (``bench.harness``: ``time_iterated``, the
-  device-memory probes and the SpMV byte models), the overlap sweep (``bench.overlap_chip``) and
-  the micro-architecture probes (``bench.microarch``).
+  device-memory probes and the SpMV byte models), the overlap sweep (``bench.overlap_chip``),
+  the micro-architecture probes (``bench.microarch``) and the distributed
+  benches (``bench.overlap``, ``bench.scaling``).
 """
 
 __version__ = "0.1.0"

@@ -12,6 +12,12 @@ reference. The reference's two access paths map to:
   * ``at()`` checked access -> bounds checked in Python, raising
     ``IndexError`` before any tensor is touched.
 
+One definition of ghost cells serves both execution modes, as in the
+reference: on one device ``wrap`` fills the halo with a constant (zero:
+Dirichlet); distributed, ``parallel/halo.py:exchange_to_halo`` fills it
+from the mesh neighbours' edge rows. The stencils of ``ops/stencil.py``
+(``*_halo``) run on either.
+
 The reference's arrays are immutable, so ``with_interior`` and ``set_halo``
 return a new HaloArray over a copy of ``data``; the port does the same (a
 view from ``window`` shares ``data``'s storage, as torch slicing does).

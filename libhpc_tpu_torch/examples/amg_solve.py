@@ -1,11 +1,14 @@
-"""AMG-preconditioned CG on an unstructured SPD operator (one card).
+"""AMG-preconditioned CG on an unstructured SPD operator, on one device
+and distributed.
 
 Run: python -m libhpc_tpu_torch.examples.amg_solve [n_block_rows] [device]
+         [n_ranks]
 
 The operator is an SPD-ified FEM-like block matrix. The hierarchy is built
 on the host (``amg_setup``) and applied on the device; every smoothing
-sweep runs the SBELL SpMV kernel. The distributed half of the reference
-example waits for the port's distributed modules.
+sweep runs the SBELL SpMV kernel. The distributed half solves it again with
+``parallel.dist_amg.dist_amg_pcg`` over n_ranks ranks (default: 8 gloo
+ranks on the CPU, or one rank a card), started here.
 """
 
 import sys
@@ -31,7 +34,20 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def main(n_block_rows: int = 800, device="cuda") -> dict:
+def dist_solve(A, b, device_type: str = "cuda"):
+    """The distributed half, in each rank of the process group: AMG-PCG
+    over a DistSBELL fine level; returns (x joined, iterations)."""
+    import torch.distributed as dist
+
+    from libhpc_tpu_torch.parallel import programs
+
+    x, it, _ = programs.amg_pcg(A, b, tol=1e-6, device_type=device_type)
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, x)
+    return np.concatenate(parts)[:A.shape[0]], it
+
+
+def main(n_block_rows: int = 800, device="cuda", n_ranks=None) -> dict:
     from libhpc_tpu_torch.ops import multigrid_sbell as amg
     from libhpc_tpu_torch.ops import solver
     from libhpc_tpu_torch.ops.spmv_sbell import sbell_spmv
@@ -63,9 +79,23 @@ def main(n_block_rows: int = 800, device="cuda") -> dict:
     _, it_cg, _ = solver.cg(lambda v: sbell_spmv(sb, v), b, tol=1e-6,
                             max_iter=1000)
     print(f"plain CG for comparison: {it_cg} iterations")
-    return {"iterations": it, "cg_iterations": it_cg, "rel_res": rel}
+
+    # ---- distributed ------------------------------------------------------
+    from libhpc_tpu_torch.parallel.mesh import launch
+
+    dt = torch.device(device).type
+    if n_ranks is None:
+        n_ranks = 8 if dt == "cpu" else torch.cuda.device_count()
+    xd, itd = launch(n_ranks, dist_solve, (A, b_np, dt), device_type=dt)[0]
+    rd = b_np - A @ xd
+    rel_d = float(np.linalg.norm(rd) / np.linalg.norm(b_np))
+    print(f"distributed AMG-PCG ({n_ranks} shards): {itd} iterations, "
+          f"rel res {rel_d:.2e}")
+    return {"iterations": it, "cg_iterations": it_cg, "rel_res": rel,
+            "dist_iterations": itd, "dist_rel_res": rel_d}
 
 
 if __name__ == "__main__":
     main(int(sys.argv[1]) if len(sys.argv) > 1 else 800,
-         sys.argv[2] if len(sys.argv) > 2 else "cuda")
+         sys.argv[2] if len(sys.argv) > 2 else "cuda",
+         int(sys.argv[3]) if len(sys.argv) > 3 else None)

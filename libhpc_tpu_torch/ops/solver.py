@@ -34,27 +34,34 @@ def norm2(x):
     return torch.sqrt(dot(x, x))
 
 
-def _tol2(b, tol: float):
+def _tol2(b, tol: float, sdot=_sdot):
     """tol^2 * max(<b,b>, 1) in b's dtype, as the reference computes it."""
     one = torch.ones((), dtype=b.dtype, device=b.device)
     return torch.tensor(tol, dtype=b.dtype, device=b.device) ** 2 \
-        * torch.maximum(_sdot(b, b), one)
+        * torch.maximum(sdot(b, b), one)
 
 
 def cg(matvec: Callable, b, x0=None, tol: float = 1e-6, max_iter: int = 1000):
     """Conjugate gradient for SPD systems. Returns (x, n_iters, res2)."""
+    return _cg(matvec, b, x0, tol, max_iter, _sdot)
+
+
+def _cg(matvec, b, x0, tol, max_iter, sdot):
+    """cg with the dot product `sdot`: the distributed solvers
+    (parallel/) pass a dot summed over every shard, so that every rank
+    takes the same number of iterations."""
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     p = r
-    rs = _sdot(r, r)
-    tol2 = _tol2(b, tol)
+    rs = sdot(r, r)
+    tol2 = _tol2(b, tol, sdot)
     it = 0
     while it < max_iter and bool(rs > tol2):
         Ap = matvec(p)
-        alpha = rs / _sdot(p, Ap)
+        alpha = rs / sdot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
-        rs_new = _sdot(r, r)
+        rs_new = sdot(r, r)
         p = r + (rs_new / rs) * p
         rs = rs_new
         it += 1
@@ -82,24 +89,29 @@ def pcg_op(matvec: Callable, minv: Callable, b, x0=None, tol: float = 1e-6,
            max_iter: int = 1000):
     """CG with an arbitrary SPD preconditioner OPERATOR z = minv(r).
     Returns (x, iters, res2)."""
+    return _pcg_op(matvec, minv, b, x0, tol, max_iter, _sdot)
+
+
+def _pcg_op(matvec, minv, b, x0, tol, max_iter, sdot):
+    """pcg_op with the dot product `sdot` (see _cg)."""
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     z = minv(r)
     p = z
-    rz = _sdot(r, z)
-    rr = _sdot(r, r)
-    tol2 = _tol2(b, tol)
+    rz = sdot(r, z)
+    rr = sdot(r, r)
+    tol2 = _tol2(b, tol, sdot)
     it = 0
     while it < max_iter and bool(rr > tol2):
         Ap = matvec(p)
-        alpha = rz / _sdot(p, Ap)
+        alpha = rz / sdot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         z = minv(r)
-        rz_new = _sdot(r, z)
+        rz_new = sdot(r, z)
         p = z + (rz_new / rz) * p
         rz = rz_new
-        rr = _sdot(r, r)
+        rr = sdot(r, r)
         it += 1
     return x, it, rr
 

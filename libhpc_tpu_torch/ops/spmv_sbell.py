@@ -17,8 +17,12 @@ A flat FarBlocks far set takes the near launch plus the plain
 
 The reference splits the near path into an x-resident and a row-chunked
 kernel because x and the output had to fit the TPU's VMEM; the Hopper
-kernel reads x from global memory, so the port has one path and no chunk
-plan. One CTA takes a stripe and streams its tiles through a ring of
+kernel reads x from global memory, so the port has one path and runs no
+chunk plan. The reference's host planner (``VMEM_CAP``,
+``_resident_bytes``, ``_worst_chunk_bytes``, ``_chunk_plan``) is kept,
+numpy line for line, only so that ``parallel.dist_sbell.DistSBELL``
+carries the reference's chunk statics and bounds; the kernel ignores them.
+One CTA takes a stripe and streams its tiles through a ring of
 shared-memory stages. The wrappers run the plain versions for CPU tensors
 only; for CUDA tensors they launch the kernel or raise.
 ``NEAR_LAUNCHES`` counts near-only launches, ``SPMV_LAUNCHES`` fused ones
@@ -39,6 +43,95 @@ NEAR_LAUNCHES = 0
 SPMV_LAUNCHES = 0
 
 MODE_NEAR, MODE_FAR, MODE_BOTH = 1, 2, 3
+
+# the reference's VMEM budget of its x-resident kernel (bytes): its
+# defaults (LIBHPC_SBELL_VMEM_LIMIT = 100 MB, cap = limit - 4 MB), kept as
+# constants with no environment read; they decide DistSBELL's chunk plans
+VMEM_LIMIT = 100 * 1024 * 1024
+VMEM_CAP = VMEM_LIMIT - 4 * 1024 * 1024
+
+
+def _resident_bytes(n_stripes: int, n_panes: int) -> int:
+    """VMEM the reference's resident x panes + output take for one call."""
+    return ((n_panes + W_PANES - 1) * B * LANE + n_stripes * B * LANE) * 4
+
+
+def _worst_chunk_bytes(sid_np, pane_np, n_stripes: int, spc: int):
+    """(worst-group VMEM bytes, worst group index) for stripe groups of
+    size spc: per-group pane window + double-buffered output slice."""
+    n_grp = -(-n_stripes // spc)
+    worst, worst_g = 0, 0
+    for g in range(n_grp):
+        s_lo, s_hi = g * spc, min((g + 1) * spc, n_stripes)
+        sel = (sid_np >= s_lo) & (sid_np < s_hi)
+        if sel.any():
+            win = int(pane_np[sel].max() - pane_np[sel].min()) + W_PANES
+        else:
+            win = W_PANES
+        need = (win + 2 * (spc + W_PANES - 1)) * B * LANE * 4
+        if need > worst:
+            worst, worst_g = need, g
+    return worst, worst_g
+
+
+def _chunk_plan(sb: SBELL, force_spc: int | None = None):
+    """The reference's host stripe grouping, so each group fits VMEM_CAP.
+
+    Returns (stripes_per_chunk, win_panes, gsteps, bounds), bounds a tuple
+    of (g0, stripe_lo, pane_lo) per group. force_spc pins the stripes per
+    chunk (parallel/dist_sbell.py needs one value across shards)."""
+    import numpy as np
+
+    pane_np = sb.pane.cpu().numpy()
+    sid_np = sb.sid.cpu().numpy()
+    # real tiles are stripe-major; the tpb padding tail restarts at sid 0
+    dec = np.flatnonzero(np.diff(sid_np.astype(np.int64)) < 0)
+    n_true = int(dec[-1]) + 1 if dec.size else len(sid_np)
+    sid_np = sid_np[:n_true]
+    pane_np = pane_np[:n_true]
+
+    if force_spc is not None:
+        spc = force_spc
+    else:
+        spc = sb.n_stripes
+        while True:
+            worst, worst_g = _worst_chunk_bytes(sid_np, pane_np,
+                                                sb.n_stripes, spc)
+            if worst <= VMEM_CAP:
+                break
+            if spc == 1:
+                raise ValueError(
+                    f"sbell_spmv: stripe {worst_g} alone needs {worst} B "
+                    f"of VMEM (pane window + output) but VMEM_CAP is "
+                    f"{VMEM_CAP} B; the matrix is too wide-scattered for "
+                    "the chunked near kernel")
+            spc //= 2
+    n_grp = -(-sb.n_stripes // spc)
+    G = sb.n_tiles // sb.tpb
+    win_panes = W_PANES
+    raw = []
+    for g in range(n_grp):
+        s_lo, s_hi = g * spc, min((g + 1) * spc, sb.n_stripes)
+        sel = (sid_np >= s_lo) & (sid_np < s_hi)
+        if sel.any():
+            t0, t1 = int(np.flatnonzero(sel)[0]), int(
+                np.flatnonzero(sel)[-1]) + 1
+            p_lo = int(pane_np[sel].min())
+            win_panes = max(win_panes,
+                            int(pane_np[sel].max()) - p_lo + W_PANES)
+        else:
+            t0 = t1 = 0
+            p_lo = 0
+        raw.append((t0, t1, s_lo, p_lo))
+    tpb = sb.tpb
+    gsteps = max((-(-t1 // tpb)) - (t0 // tpb)
+                 for t0, t1, _, _ in raw) or 1
+    gsteps = min(gsteps, G)
+    bounds = []
+    for (t0, t1, s_lo, p_lo) in raw:
+        g0 = min(max(t0 // tpb, 0), G - gsteps)
+        bounds.append((g0, s_lo, p_lo))
+    return (spc, win_panes, gsteps, tuple(bounds))
 
 
 def _check_aligned(t: torch.Tensor, name: str) -> None:

@@ -18,8 +18,12 @@ def _port_class(name):
     from libhpc_tpu_torch.ops import spmv_sell
     from libhpc_tpu_torch.sparse import bell, bsr, coo, csr, dia, ell, grid
     from libhpc_tpu_torch.sparse import hybrid, sbell
+    from libhpc_tpu_torch.parallel import dist2d, dist_dia, dist_sbell
+    from libhpc_tpu_torch.parallel import dist_spmv
 
-    return {"CSR": csr.CSR, "SBELL": sbell.SBELL, "FarPane": sbell.FarPane,
+    return {"DistCSR": dist_spmv.DistCSR, "DistDIA": dist_dia.DistDIA,
+            "Dist2DCSR": dist2d.Dist2DCSR, "DistSBELL": dist_sbell.DistSBELL,
+            "CSR": csr.CSR, "SBELL": sbell.SBELL, "FarPane": sbell.FarPane,
             "COO": coo.COO, "BSR": bsr.BSR, "BELL": bell.BELL,
             "BandedHybrid": hybrid.BandedHybrid,
             "AMGLevel": multigrid_sbell.AMGLevel,

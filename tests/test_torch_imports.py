@@ -1,8 +1,9 @@
 """Import hygiene of the PyTorch port, its CPU dispatch rule, and where its
 entry points put their results.
 
-Importing any libhpc_tpu_torch module must pull in no jax, jaxlib or
-triton, must build nothing and must touch no CUDA state. On CPU tensors
+Importing any libhpc_tpu_torch module must pull in no jax, jaxlib,
+triton or libhpc_tpu (the JAX package), must build nothing and must touch
+no CUDA state. On CPU tensors
 each kernel wrapper runs its plain version and leaves its launch counter at
 0. Builders and numpy inputs given no device aim at the card: where there
 is none they raise rather than run on the CPU.
@@ -81,6 +82,21 @@ MODULES = [
     "libhpc_tpu_torch.examples.amg_solve",
     "libhpc_tpu_torch.examples.poisson_cg",
     "libhpc_tpu_torch.examples.multigrid_demo",
+    "libhpc_tpu_torch.examples.distributed_spmv",
+    "libhpc_tpu_torch.parallel",
+    "libhpc_tpu_torch.parallel.mesh",
+    "libhpc_tpu_torch.parallel.collectives",
+    "libhpc_tpu_torch.parallel.halo",
+    "libhpc_tpu_torch.parallel.dist_spmv",
+    "libhpc_tpu_torch.parallel.dist_dia",
+    "libhpc_tpu_torch.parallel.dist_stencil",
+    "libhpc_tpu_torch.parallel.dist2d",
+    "libhpc_tpu_torch.parallel.dist_sbell",
+    "libhpc_tpu_torch.parallel.dist_amg",
+    "libhpc_tpu_torch.parallel.programs",
+    "libhpc_tpu_torch.dryrun",
+    "libhpc_tpu_torch.bench.overlap",
+    "libhpc_tpu_torch.bench.scaling",
 ]
 
 
@@ -112,7 +128,7 @@ def test_import_pulls_in_no_jax_triton_or_build():
         before = built()
         for m in {MODULES!r}:
             importlib.import_module(m)
-        bad = sorted(m for m in ("jax", "jaxlib", "triton")
+        bad = sorted(m for m in ("jax", "jaxlib", "triton", "libhpc_tpu")
                      if m in sys.modules)
         assert not bad, bad
         assert built() == before, "import built into _build/"
