@@ -245,6 +245,21 @@ the script started (t_s):
                1e-6), the CSR checks on a good and a corrupted CUDA CSR,
                and a trace_to of a CG solve that names its annotate("cg")
                range
+ 29h corpus    the benchmark corpus (bench/corpus.py, libHPC's
+               google-benchmark suite and this library's paths) at the
+               reference's full sizes, all 40 records, in a child process
+               (chip_smoke.py --corpus, corpus.main([]) one bench at a
+               time, each bench's launch counters zeroed before it and read
+               after it): fails on an error record, a missing, extra or
+               reordered record, "correct" not true where the reference
+               sets it, a kernel-reaching bench whose kernel (K1-K3 in the
+               fused SBELL launch, with a FarPane where K3 is claimed;
+               K8-K10 and the split search; K13; K15; K17; K19) did not
+               launch, the 103M-nnz SpMV in other than one fused launch a
+               matvec, or a TF32 flag on at a convolution; each SBELL
+               record's real bytes (sbell_work) beside its time; then
+               dryrun.entry()'s CG step on the card against the CPU's.
+               The corpus's launches do not join the kernels line
  30 library    torch.sparse CSR matvecs of the SpMV kernels' matrices,
                the library yardstick of K1-K7 (after every profile)
  31 sass       the HGMMA (wgmma) lines in the library's SASS (fails at 0;
@@ -3894,6 +3909,161 @@ def sort_split_profile() -> dict:
     return rec
 
 
+CORPUS_ARG = "--corpus"
+# the launch counters the corpus child reads: name -> (module, attribute)
+CORPUS_COUNTERS = {
+    "spmv": ("libhpc_tpu_torch.ops.spmv_sbell", "SPMV_LAUNCHES"),
+    "near": ("libhpc_tpu_torch.ops.spmv_sbell", "NEAR_LAUNCHES"),
+    "far": ("libhpc_tpu_torch.ops.far_sbell", "FAR_LAUNCHES"),
+    "chunk": ("libhpc_tpu_torch.ops.sort_merge", "CHUNK_LAUNCHES"),
+    "merge": ("libhpc_tpu_torch.ops.sort_merge", "MERGE_LAUNCHES"),
+    "pair": ("libhpc_tpu_torch.ops.sort_merge", "PAIR_LAUNCHES"),
+    "split": ("libhpc_tpu_torch.ops.sort_merge", "SPLIT_LAUNCHES"),
+    "scan_f32": ("libhpc_tpu_torch.ops.scan", "SCAN_F32_LAUNCHES"),
+    "hist": ("libhpc_tpu_torch.ops.histogram", "HIST_LAUNCHES"),
+    "transpose": ("libhpc_tpu_torch.ops.transpose", "TRANSPOSE_LAUNCHES"),
+    "blur": ("libhpc_tpu_torch.ops.stencil", "BLUR_LAUNCHES"),
+}
+# corpus bench -> the counters that must move in it. K1-K3 run fused (one
+# "spmv" launch a matvec); merge counts K9 and K10, pair the K10 ones
+CORPUS_NEED = {
+    "transpose": ("transpose",),
+    "blur": ("blur",),
+    "sort": ("chunk", "merge", "pair", "split"),
+    "scan_hist": ("scan_f32", "hist"),
+    "sbell": ("spmv",),
+    "spmm_cg": ("spmv",),
+    "scale": ("spmv",),
+    "amg": ("spmv",),
+}
+
+
+def corpus_child() -> dict:
+    """corpus.main([name]) for each bench of corpus.ALL at its defaults
+    (the records go to stdout as the corpus prints them), every counter of
+    CORPUS_COUNTERS zeroed before a bench and read after it; each SBELL
+    container the byte model is asked about (the sbell, scale records),
+    with its real bytes (sbell_work) and far-set type; the cuDNN TF32 flag
+    at every convolution. Returns that summary."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from libhpc_tpu_torch.bench import corpus, harness
+    from libhpc_tpu_torch.sparse.sbell import FarPane
+
+    mods = {k: (importlib.import_module(m), a)
+            for k, (m, a) in CORPUS_COUNTERS.items()}
+    sbell_seen = []
+    byte_model = harness.format_spmv_rw_bytes
+
+    def seen_bytes(fmt, obj, m, n):
+        if fmt == "sbell":
+            meta = torch.device("meta")
+            x3 = torch.empty((obj.n_panes + 2, 8, 128), device=meta)
+            out = torch.empty((obj.n_stripes + 2, 8, 128), device=meta)
+            far = isinstance(obj.far, FarPane)
+            sbell_seen.append({
+                "rows": m, "dtype": str(obj.vflat.dtype),
+                "far": type(obj.far).__name__,
+                "real_bytes": sbell_work(obj, x3, out, True, far)[0],
+                "model_bytes": sum(byte_model(fmt, obj, m, n))})
+        return byte_model(fmt, obj, m, n)
+
+    conv2d = F.conv2d
+    tf32_at_conv = []
+
+    def conv_seen(*a, **kw):
+        tf32_at_conv.append(torch.backends.cudnn.allow_tf32
+                            or torch.backends.cuda.matmul.allow_tf32)
+        return conv2d(*a, **kw)
+
+    harness.format_spmv_rw_bytes = seen_bytes
+    F.conv2d = conv_seen
+    counts, seconds = {}, {}
+    cudnn_tf32_default = torch.backends.cudnn.allow_tf32
+    for name in corpus.ALL:
+        for mod, attr in mods.values():
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        corpus.main([name])
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        counts[name] = {k: getattr(mod, attr)
+                        for k, (mod, attr) in mods.items()
+                        if getattr(mod, attr)}
+    return {"counters": counts, "seconds": seconds,
+            "sbell_containers": sbell_seen,
+            "cudnn_tf32_default": cudnn_tf32_default,
+            "tf32_at_conv": tf32_at_conv}
+
+
+def check_corpus(records, child) -> None:
+    """The corpus phase's gates (phase 29h)."""
+    from libhpc_tpu_torch.bench import corpus
+
+    names = [r["bench"] for r in records]
+    want = [n for recs in corpus.RECORDS.values() for n in recs]
+    bad = [r for r in records if "error" in r]
+    if bad or names != want:
+        raise AssertionError(f"corpus: error records {bad}; records "
+                             f"{names}, expected {want}")
+    by_name = {r["bench"]: r for r in records}
+    wrong = [n for n in corpus.GATED if by_name[n].get("correct") is not True]
+    if wrong:
+        raise AssertionError(f"corpus: not correct: {wrong}")
+    for bench, need in CORPUS_NEED.items():
+        idle = [k for k in need if not child["counters"][bench].get(k)]
+        if idle:
+            raise AssertionError(f"corpus {bench}: {idle} never launched: "
+                                 f"{child['counters'][bench]}")
+    if by_name["spmv_sbell_100m_chunked"]["launches"] != 1:
+        raise AssertionError("corpus: the 103M-nnz SpMV took "
+                             f"{by_name['spmv_sbell_100m_chunked']} "
+                             "fused launches a matvec, expected 1")
+    if not any(c["far"] == "FarPane" for c in child["sbell_containers"]):
+        raise AssertionError("corpus: no SBELL with a FarPane, so K3 "
+                             "never ran fused")
+    if not child["tf32_at_conv"] or any(child["tf32_at_conv"]):
+        raise AssertionError(f"corpus: TF32 at the convolution: "
+                             f"{child['tf32_at_conv'][:4]}")
+
+
+def corpus_phase() -> None:
+    """Phase 29h: the corpus in a child process (corpus_child), its
+    gates, then entry()'s CG step on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from libhpc_tpu_torch import dryrun
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          CORPUS_ARG], capture_output=True, text=True,
+                         timeout=600)
+    child_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"corpus: the child process failed "
+                             f"({res.returncode}): {res.stdout[-2000:]} "
+                             f"{res.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in res.stdout.splitlines()
+             if ln.startswith("{")]
+    records, child = lines[:-1], lines[-1]
+    check_corpus(records, child)
+    step, args = dryrun.entry()
+    y = step(*args).cpu().numpy()
+    step_c, args_c = dryrun.entry(device="cpu")
+    yc = step_c(*args_c).numpy()
+    if y.shape != yc.shape or not np.allclose(y, yc, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"entry: the card's CG step differs from the "
+                             f"CPU's by {np.abs(y - yc).max()}")
+    emit({"phase": "corpus", "records": records, "child_s": child_s,
+          **child, "entry_max_abs_err": float(np.abs(y - yc).max())})
+
+
 def library_phase(dev) -> None:
     """One torch.sparse CSR matvec (cuSPARSE) of each SpMV kernel's matrix:
     the library call computing the same product as K1-K7. Run after every
@@ -4027,6 +4197,7 @@ def run(dev, native_build):
     formats_phase(dev)
     spgemm_phase(dev)
     runtime_phase(dev, native_build)
+    corpus_phase()
     check_family_launches(family)
     library_phase(dev)
     emit({"phase": "launches", "spmv": spmv, "near": near, "far": far,
@@ -4185,6 +4356,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == [DIST_SPLIT_ARG]:
         emit(dist_split_profile())
+        return 0
+    if sys.argv[1:] == [CORPUS_ARG]:
+        print(json.dumps(corpus_child()), flush=True)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

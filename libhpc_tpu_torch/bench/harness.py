@@ -40,8 +40,9 @@ import torch
 
 def _chain_seconds(step_fn, x0, operand, m: int) -> float:
     """Seconds of m chained applications of step_fn, timed on x0's
-    device (x0 is a tensor, or a tuple whose first item is one)."""
-    dev = (x0 if isinstance(x0, torch.Tensor) else x0[0]).device
+    device (x0 is a tensor or a container with a ``device``, or a tuple
+    whose first item is a tensor)."""
+    dev = x0[0].device if isinstance(x0, tuple) else x0.device
 
     def chain():
         x = x0

@@ -1,7 +1,13 @@
-"""The multichip dry run: every distributed path of the port, once, on
-tiny shapes.
+"""Entry points of the flagship path: the CG step, and the multichip dry
+run of every distributed path of the port, once, on tiny shapes.
 
-Port of ``__graft_entry__.py:dryrun_multichip``. It takes the reference's
+``entry(device="cuda")`` is the port of ``__graft_entry__.py:entry``: it
+returns ``(cg_step, (csr, x, b))``, one CG-style iteration (two CSR
+matvecs, two dots, an axpy) and its operands on the 4096-row Poisson 64^2
+system.
+
+``dryrun_multichip`` is the port of ``__graft_entry__.py:
+dryrun_multichip``. It takes the reference's
 steps over an n-rank mesh: a distributed CG step (the overlapped DistCSR
 matvec and two dots summed over the mesh), the DistCSR SpMM, the
 halo-exchange DIA matvec, the 2-D SUMMA matvec (n >= 4, even), the
@@ -23,6 +29,28 @@ import sys
 import numpy as np
 import torch
 import torch.distributed as dist
+
+
+def entry(device="cuda"):
+    """(cg_step, (csr, x, b)) on Poisson 64^2: cg_step(csr, x, b) is
+    r = b - A x, alpha = <r, r> / max(<r, A r>, 1e-30), x + alpha r."""
+    from libhpc_tpu_torch.bench import matrices
+    from libhpc_tpu_torch.ops import spmv
+    from libhpc_tpu_torch.sparse import CSR
+
+    A = matrices.poisson2d(64)
+    csr = CSR.from_scipy(A, device=device)
+    x = torch.from_numpy(np.linspace(-1, 1, A.shape[0], dtype=np.float32)
+                         ).to(device)
+    b = torch.ones((A.shape[0],), dtype=torch.float32, device=device)
+
+    def cg_step(csr, x, b):
+        r = b - spmv.csr_spmv(csr, x)
+        Ar = spmv.csr_spmv(csr, r)
+        alpha = torch.sum(r * r) / torch.clamp(torch.sum(r * Ar), min=1e-30)
+        return x + alpha * r
+
+    return cg_step, (csr, x, b)
 
 
 def _check(t: torch.Tensor, shape: tuple, what: str) -> None:

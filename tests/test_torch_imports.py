@@ -97,6 +97,7 @@ MODULES = [
     "libhpc_tpu_torch.dryrun",
     "libhpc_tpu_torch.bench.overlap",
     "libhpc_tpu_torch.bench.scaling",
+    "libhpc_tpu_torch.bench.corpus",
 ]
 
 
