@@ -1,0 +1,8 @@
+"""spmv_roofline_pct.cg (%): the matvec call inside the solve cells, glue
+included, against its least time (roofline.py), from the device trace."""
+
+from hpcbench import layers
+
+
+def read(rec):
+    return layers.spmv_roofline_pct(rec)
