@@ -5,6 +5,11 @@ reference becomes a Python loop that tests ``rs > tol2`` on the host once
 per iteration: one device sync per iteration. Vectors may have any shape
 (the SBELL pane layout included); dots reduce over every element.
 
+While a profiler records, each loop's test is a ``libhpc.solver.sync``
+range and each iteration's body a ``libhpc.solver.iteration`` range
+(``utils/profiling.annotate``), so a trace splits the device's idle time
+after the sync from the host's enqueue of the next iteration.
+
 Works with any container that supports ``@`` or with any matvec callable.
 All solvers return ``(x, n_iters, res2)`` like the reference: n_iters is a
 Python int and res2 the final squared residual as a 0-d tensor.
@@ -15,6 +20,9 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from libhpc_tpu_torch.utils.profiling import (SOLVER_ITERATION,
+                                              SOLVER_SYNC, annotate)
 
 
 def axpy(a, x, y):
@@ -56,14 +64,19 @@ def _cg(matvec, b, x0, tol, max_iter, sdot):
     rs = sdot(r, r)
     tol2 = _tol2(b, tol, sdot)
     it = 0
-    while it < max_iter and bool(rs > tol2):
-        Ap = matvec(p)
-        alpha = rs / sdot(p, Ap)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        rs_new = sdot(r, r)
-        p = r + (rs_new / rs) * p
-        rs = rs_new
+    while it < max_iter:
+        with annotate(SOLVER_SYNC):
+            go = bool(rs > tol2)
+        if not go:
+            break
+        with annotate(SOLVER_ITERATION):
+            Ap = matvec(p)
+            alpha = rs / sdot(p, Ap)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            rs_new = sdot(r, r)
+            p = r + (rs_new / rs) * p
+            rs = rs_new
         it += 1
     return x, it, rs
 
@@ -102,16 +115,21 @@ def _pcg_op(matvec, minv, b, x0, tol, max_iter, sdot):
     rr = sdot(r, r)
     tol2 = _tol2(b, tol, sdot)
     it = 0
-    while it < max_iter and bool(rr > tol2):
-        Ap = matvec(p)
-        alpha = rz / sdot(p, Ap)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = minv(r)
-        rz_new = sdot(r, z)
-        p = z + (rz_new / rz) * p
-        rz = rz_new
-        rr = sdot(r, r)
+    while it < max_iter:
+        with annotate(SOLVER_SYNC):
+            go = bool(rr > tol2)
+        if not go:
+            break
+        with annotate(SOLVER_ITERATION):
+            Ap = matvec(p)
+            alpha = rz / sdot(p, Ap)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = minv(r)
+            rz_new = sdot(r, z)
+            p = z + (rz_new / rz) * p
+            rz = rz_new
+            rr = sdot(r, r)
         it += 1
     return x, it, rr
 
@@ -135,19 +153,24 @@ def bicgstab(matvec: Callable, b, x0=None, tol: float = 1e-6,
     rho, alpha, omega = one, one, one
     rr = _sdot(r, r)
     it = 0
-    while it < max_iter and bool(rr > tol2):
-        rho_new = _sdot(rhat, r)
-        beta = (rho_new / safe(rho)) * (alpha / safe(omega))
-        p = r + beta * (p - omega * v)
-        v = matvec(p)
-        alpha = rho_new / safe(_sdot(rhat, v))
-        s_vec = r - alpha * v
-        t = matvec(s_vec)
-        tt = _sdot(t, t)
-        omega = _sdot(t, s_vec) / torch.where(tt > eps, tt, eps)
-        x = x + alpha * p + omega * s_vec
-        r = s_vec - omega * t
-        rho = rho_new
-        rr = _sdot(r, r)
+    while it < max_iter:
+        with annotate(SOLVER_SYNC):
+            go = bool(rr > tol2)
+        if not go:
+            break
+        with annotate(SOLVER_ITERATION):
+            rho_new = _sdot(rhat, r)
+            beta = (rho_new / safe(rho)) * (alpha / safe(omega))
+            p = r + beta * (p - omega * v)
+            v = matvec(p)
+            alpha = rho_new / safe(_sdot(rhat, v))
+            s_vec = r - alpha * v
+            t = matvec(s_vec)
+            tt = _sdot(t, t)
+            omega = _sdot(t, s_vec) / torch.where(tt > eps, tt, eps)
+            x = x + alpha * p + omega * s_vec
+            r = s_vec - omega * t
+            rho = rho_new
+            rr = _sdot(r, r)
         it += 1
     return x, it, rr

@@ -20,7 +20,9 @@ zeros behind, flat) and write (n_tiles * T/128, 128) f32:
 
 The wrappers run the plain version for CPU tensors only; for CUDA tensors
 they launch the kernel or raise. ``DIA_LAUNCHES`` and ``PROBE_LAUNCHES``
-count kernel launches.
+count kernel launches. While a profiler records, ``dia_spmv_pallas``'s
+``extend_x`` is a ``libhpc.spmv.prepare`` range and ``dia_out`` a
+``libhpc.spmv.launch`` range (``utils/profiling.annotate``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ from libhpc_tpu_torch.ops._cuda_utils import (check_launch, check_tensor,
                                               kernel_device, kernel_fn)
 from libhpc_tpu_torch.ops.spmv import MAX_DIA_OFFSETS
 from libhpc_tpu_torch.sparse._leaves import TensorLeaves, tensor_to_numpy
+from libhpc_tpu_torch.utils.profiling import (SPMV_LAUNCH, SPMV_PREPARE,
+                                              annotate)
 
 LANE = 128
 
@@ -165,10 +169,11 @@ def _launch(name: str, dp: DiaPallas, x_ext: torch.Tensor,
 def dia_out(dp: DiaPallas, x_ext: torch.Tensor) -> torch.Tensor:
     """K4: (n_tiles * T/128, 128) f32 rows of y (padded to whole tiles)."""
     global DIA_LAUNCHES
-    dev = kernel_device(dp.dflat, x_ext)
-    if dev.type == "cpu":
-        return dia_out_torch(dp, x_ext)
-    out = _launch("dia_spmv_f32", dp, x_ext, dev)
+    with annotate(SPMV_LAUNCH):
+        dev = kernel_device(dp.dflat, x_ext)
+        if dev.type == "cpu":
+            return dia_out_torch(dp, x_ext)
+        out = _launch("dia_spmv_f32", dp, x_ext, dev)
     DIA_LAUNCHES += 1
     return out
 
@@ -194,4 +199,6 @@ def dia_pattern_probe(dp: DiaPallas, x: torch.Tensor) -> torch.Tensor:
 
 def dia_spmv_pallas(dp: DiaPallas, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for a DiaPallas operand; x f32 (ncols,) -> f32 (nrows,)."""
-    return dia_out(dp, extend_x(dp, x)).reshape(-1)[:dp.shape[0]]
+    with annotate(SPMV_PREPARE):
+        x_ext = extend_x(dp, x)
+    return dia_out(dp, x_ext).reshape(-1)[:dp.shape[0]]

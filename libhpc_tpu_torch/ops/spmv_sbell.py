@@ -26,7 +26,10 @@ One CTA takes a stripe and streams its tiles through a ring of
 shared-memory stages. The wrappers run the plain versions for CPU tensors
 only; for CUDA tensors they launch the kernel or raise.
 ``NEAR_LAUNCHES`` counts near-only launches, ``SPMV_LAUNCHES`` fused ones
-(``far_sbell.FAR_LAUNCHES`` far-only ones).
+(``far_sbell.FAR_LAUNCHES`` far-only ones). While a profiler records,
+``sbell_spmv_padded``'s pane layout (``x_to_panes``) is a
+``libhpc.spmv.prepare`` range and ``sbell_spmv_panes`` a
+``libhpc.spmv.launch`` range (``utils/profiling.annotate``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ from libhpc_tpu_torch.ops._cuda_utils import (check_launch, check_tensor,
                                               kernel_device, kernel_fn)
 from libhpc_tpu_torch.sparse.sbell import (B, LANE, PANE_COLS, SBELL, VROWS,
                                            W_PANES, FarPane)
+from libhpc_tpu_torch.utils.profiling import (SPMV_LAUNCH, SPMV_PREPARE,
+                                              annotate)
 
 NEAR_LAUNCHES = 0
 SPMV_LAUNCHES = 0
@@ -263,45 +268,47 @@ def sbell_spmv_panes(sb: SBELL, x3: torch.Tensor, chunk_plan=None
     Hopper kernel reads x from global memory, so there is no
     resident/chunked split."""
     global SPMV_LAUNCHES
-    fused = sb.far is None or isinstance(sb.far, FarPane)
-    if fused and x3.device.type == "cuda":
-        fp = sb.far
-        leaves = (sb.vflat, sb.meta, sb.pane, sb.tile_ptr, x3)
-        if fp is not None:
-            leaves += (fp.ep, fp.lidx, fp.bt, fp.olane)
-        dev = kernel_device(*leaves)
-        check_near(sb, x3, dev)
-        if fp is not None:
-            check_far(fp, x3, dev)
-            if fp.n_grouped < sb.n_stripes + W_PANES - 1:
-                raise ValueError(f"far set of {fp.n_grouped} grouped stripes "
-                                 f"for {sb.n_stripes} stripes")
-        out = _near_launch(sb, fp, x3, dev)
-        SPMV_LAUNCHES += 1
+    with annotate(SPMV_LAUNCH):
+        fused = sb.far is None or isinstance(sb.far, FarPane)
+        if fused and x3.device.type == "cuda":
+            fp = sb.far
+            leaves = (sb.vflat, sb.meta, sb.pane, sb.tile_ptr, x3)
+            if fp is not None:
+                leaves += (fp.ep, fp.lidx, fp.bt, fp.olane)
+            dev = kernel_device(*leaves)
+            check_near(sb, x3, dev)
+            if fp is not None:
+                check_far(fp, x3, dev)
+                if fp.n_grouped < sb.n_stripes + W_PANES - 1:
+                    raise ValueError(f"far set of {fp.n_grouped} grouped "
+                                     f"stripes for {sb.n_stripes} stripes")
+            out = _near_launch(sb, fp, x3, dev)
+            SPMV_LAUNCHES += 1
+            return out.reshape(sb.n_stripes + W_PANES - 1, B, LANE)
+        out = near_out_panes(sb, x3)
+        if isinstance(sb.far, FarPane):
+            from libhpc_tpu_torch.ops.far_sbell import far_pane_out_panes
+
+            guarded = (sb.n_stripes + W_PANES - 1) * B
+            out = out + far_pane_out_panes(sb.far, x3, guarded)
+        elif sb.far is not None:
+            from libhpc_tpu_torch.ops.spmv import far_spmv
+
+            xflat = x3[:sb.n_panes].transpose(1, 2).reshape(-1)
+            yfar = far_spmv(sb.far, xflat)
+            yfar = yfar.reshape(sb.n_stripes, LANE, B).transpose(
+                1, 2).reshape(sb.n_stripes * B, LANE)
+            out[:sb.n_stripes * B] += yfar
         return out.reshape(sb.n_stripes + W_PANES - 1, B, LANE)
-    out = near_out_panes(sb, x3)
-    if isinstance(sb.far, FarPane):
-        from libhpc_tpu_torch.ops.far_sbell import far_pane_out_panes
-
-        guarded = (sb.n_stripes + W_PANES - 1) * B
-        out = out + far_pane_out_panes(sb.far, x3, guarded)
-    elif sb.far is not None:
-        from libhpc_tpu_torch.ops.spmv import far_spmv
-
-        xflat = x3[:sb.n_panes].transpose(1, 2).reshape(-1)
-        yfar = far_spmv(sb.far, xflat)
-        yfar = yfar.reshape(sb.n_stripes, LANE, B).transpose(
-            1, 2).reshape(sb.n_stripes * B, LANE)
-        out[:sb.n_stripes * B] += yfar
-    return out.reshape(sb.n_stripes + W_PANES - 1, B, LANE)
 
 
 def sbell_spmv_padded(sb: SBELL, xpad: torch.Tensor, chunk_plan=None
                       ) -> torch.Tensor:
     """y = A @ x in the PADDED domain: xpad is (n_panes*1024,) f32 and the
     result has n_stripes*1024 entries (zero pad rows/cols are inert)."""
-    out3 = sbell_spmv_panes(sb, x_to_panes(sb, xpad), chunk_plan)
-    return panes_to_x(sb, out3)
+    with annotate(SPMV_PREPARE):
+        x3 = x_to_panes(sb, xpad)
+    return panes_to_x(sb, sbell_spmv_panes(sb, x3, chunk_plan))
 
 
 def sbell_spmv(sb: SBELL, x: torch.Tensor, chunk_plan=None) -> torch.Tensor:

@@ -5,40 +5,44 @@ stage with NVTX ranges (cuda_radix_sort_v4.cu:99-211) for Nsight
 timelines; the reference re-exports ``jax.named_scope`` and wraps
 ``jax.profiler`` traces. The port:
 
-  - ``annotate(name)``: a context manager that opens
-    ``torch.profiler.record_function(name)`` (a range in torch.profiler
-    traces) and, when CUDA is available, an NVTX range of the same name
-    (Nsight timelines, as libHPC's);
+  - ``annotate(name)``: a ``torch.profiler.record_function`` range while
+    a profiler records, and otherwise one shared no-op context, for the
+    cost of one read of torch's profiler flag. The port opens such ranges
+    at its layer boundaries (``libhpc.*``: the Krylov loops of
+    ``ops/solver.py``, the SpMV wrappers of ``ops/spmv_dia.py`` and
+    ``ops/spmv_sbell.py``), so they cost nothing measurable on the hot
+    path when nobody traces. A range lands in the profiler's Chrome trace
+    beside the device operations, on the same clock. For Nsight, run
+    under ``torch.autograd.profiler.emit_nvtx()``: it sets the same flag
+    and makes every range an NVTX range;
   - ``trace_to(logdir)``: a ``torch.profiler`` trace of CPU and CUDA
-    activity written into ``logdir`` (TensorBoard's trace format);
-  - ``wall_timer``: a scoped host-phase timer, as the reference's.
-
-As in the reference, the library's own ops carry no ranges: callers put
-them where they want them.
+    activity written into ``logdir`` (TensorBoard's trace format).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# The port's own ranges. Their names are fixed: readers of its traces
+# match them, whatever the format or solver underneath.
+SOLVER_SYNC = "libhpc.solver.sync"            # a Krylov loop's host test
+SOLVER_ITERATION = "libhpc.solver.iteration"  # one iteration's body
+SPMV_PREPARE = "libhpc.spmv.prepare"          # x laid out for the kernel
+SPMV_LAUNCH = "libhpc.spmv.launch"            # operand checks and launch
+
+_OFF = contextlib.nullcontext()
 
 
-@contextlib.contextmanager
 def annotate(name: str):
-    """Name a region: a torch.profiler range and, with CUDA, an NVTX
-    range."""
-    nvtx = torch.cuda.is_available()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+    """Name a region: a torch.profiler range while a profiler (or
+    ``emit_nvtx`` / ``emit_itt``) records, else a no-op context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
@@ -55,15 +59,3 @@ def trace_to(logdir: str):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(logdir)):
         yield
-
-
-@contextlib.contextmanager
-def wall_timer(label: str, results: dict | None = None):
-    """Host-phase timer; stores seconds into `results[label]` if given."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        dt = time.perf_counter() - t0
-        if results is not None:
-            results[label] = dt

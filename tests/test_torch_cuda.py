@@ -412,6 +412,53 @@ def test_dia_kernels_match_plain(cuda_device, name):
                                rtol=1e-4, atol=1e-4)
 
 
+def test_cg_ranges_hold_k4_alone_and_change_nothing(cuda_device, tmp_path):
+    """A CG through K4 traced by torch.profiler: K4 is the one device
+    operation launched inside each libhpc.spmv.launch range, once a
+    matvec, and the traced solve equals the untraced one bit for bit."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    A = matrices.poisson2d(256)
+    dp = DIA.from_scipy(A).to_pallas(T=1 << 13).to(cuda_device)
+    b = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        A.shape[0]).astype(np.float32)).to(cuda_device)
+    calls = []
+
+    def mv(v):
+        calls.append(1)
+        return spmv_dia.dia_spmv_pallas(dp, v)
+
+    n0 = spmv_dia.DIA_LAUNCHES
+    plain = solver.cg(mv, b, tol=0.0, max_iter=8)
+    assert spmv_dia.DIA_LAUNCHES - n0 == len(calls) == 9
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced = solver.cg(mv, b, tol=0.0, max_iter=8)
+        torch.cuda.synchronize()
+    assert plain[1] == traced[1] == 8
+    assert torch.equal(plain[0], traced[0])
+    assert torch.equal(plain[2], traced[2])
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        xs = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    # the host's ranges (the profiler also mirrors each range onto the
+    # device's timeline as a gpu_user_annotation)
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in xs
+             if e.get("name") == "libhpc.spmv.launch"
+             and e.get("cat") == "user_annotation"]
+    launched = {(e.get("args") or {}).get("correlation"): e["ts"]
+                for e in xs if e.get("cat") in ("cuda_runtime", "cuda_driver")}
+    inside = [e["name"] for e in xs if e.get("cat") in
+              ("kernel", "gpu_memcpy", "gpu_memset")
+              and any(s <= launched.get(e["args"].get("correlation"), -1)
+                      <= t for s, t in spans)]
+    assert len(spans) == 9
+    assert len(inside) == 9 and all("dia_kernel" in n for n in inside), inside
+
+
 SELL_MATRICES = {
     "banded1000": lambda: _banded(1000, (-2, -1, 0, 1, 3)),
     "poisson64": lambda: matrices.poisson2d(64),

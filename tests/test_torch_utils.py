@@ -251,13 +251,22 @@ def test_checkpoint_path_without_suffix(tmp_path):
 # -- profiling -------------------------------------------------------------
 
 def test_annotate_and_wall_timer():
-    results = {}
-    with profiling.wall_timer("stage", results):
-        with profiling.annotate("stage_double"):
+    """annotate alone (the port has no wall_timer): one shared no-op
+    context while nothing records, a named range while a profiler does."""
+    off = profiling.annotate("stage_double")
+    assert off is profiling.annotate("unrecorded")
+    with off:
+        y = torch.tensor(2.0) * 2
+    assert float(y) == 4.0
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        on = profiling.annotate("stage_double")
+        assert on is not off
+        with on:
             y = torch.tensor(2.0) * 2
-    assert float(y) == 4.0 and results["stage"] >= 0.0
-    with profiling.wall_timer("unrecorded"):
-        pass
+    assert float(y) == 4.0
+    assert "stage_double" in {e.name for e in prof.events()}
+    assert profiling.annotate("stage_double") is off
 
 
 def test_trace_to_names_the_range(tmp_path):
