@@ -59,7 +59,13 @@ the script started (t_s):
                the pattern probe; K4 and K5 against their plain versions,
                device times, GB/s and the fraction t_probe / t_kernel
   7 dia_cg     32 CG iterations through K4 on auto_format(Poisson 3072^2
-               + I/2), with the true residual
+               + I/2), with the true residual, three csrc/cg_vectors.cu
+               launches an iteration (CG_VECTOR_LAUNCHES); then
+    cg_vectors one iteration's three vector kernels on 2^24 float32
+               entries against their plain versions and float64, device
+               times of the kernels, the plain steps and the aten
+               expressions the loop ran before them, beside 11 passes
+               over 3.35 TB/s
   8 dia_xla    auto_format(poisson2d(1024)) is a DIA (plain dia_spmv), and
                cg_dia_poisson1024s_32it
   9 sell       SELLSplit of Poisson 1024^2 (from ELL) and the SELL that
@@ -394,7 +400,10 @@ def device_ms(fn, reps: int = 20, want=None):
             torch.cuda.synchronize()
         by_name, count = {}, {}
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
+            # the program's libhpc.* ranges are mirrored onto the device's
+            # timeline as user annotations: they are not device work
+            if (e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)):
                 us = e.time_range.elapsed_us()
                 by_name[e.name] = by_name.get(e.name, 0.0) + us / reps / 1e3
                 count[e.name] = count.get(e.name, 0) + 1
@@ -2104,7 +2113,7 @@ def dia_cg_phase(A, dev, launches):
     import scipy.sparse as sps
     import torch
 
-    from libhpc_tpu_torch.ops import solver, spmv_dia
+    from libhpc_tpu_torch.ops import cg_vectors, solver, spmv_dia
     from libhpc_tpu_torch.sparse.auto import auto_format
 
     As = (A + sps.eye(A.shape[0], dtype=np.float32) * 0.5).tocsr()
@@ -2126,8 +2135,14 @@ def dia_cg_phase(A, dev, launches):
         out["r"] = solver.cg(mv, b, tol=0.0, max_iter=n_it)
 
     spmv_dia.DIA_LAUNCHES = 0
+    cg_vectors.CG_VECTOR_LAUNCHES = 0
     ms = wall_ms(run)
-    launches["dia_cg"] = {"dia": spmv_dia.DIA_LAUNCHES, "matvecs": calls[0]}
+    launches["dia_cg"] = {"dia": spmv_dia.DIA_LAUNCHES, "matvecs": calls[0],
+                          "cg_vectors": cg_vectors.CG_VECTOR_LAUNCHES}
+    solves = calls[0] // (n_it + 1)     # a solve: n_it + 1 matvecs
+    if cg_vectors.CG_VECTOR_LAUNCHES != 3 * n_it * solves:
+        raise AssertionError(f"DIA CG: {cg_vectors.CG_VECTOR_LAUNCHES} "
+                             f"vector launches in {solves} solves")
     x, it, _ = out["r"]
     r = np.ones(n) - As @ x.cpu().numpy().astype(np.float64)
     if not (it == n_it and np.isfinite(r).all()
@@ -2138,6 +2153,107 @@ def dia_cg_phase(A, dev, launches):
           "nnz": int(As.nnz), "iterations": it, "ms": ms,
           "ms_per_iteration": ms / it, "residual": float(np.linalg.norm(r)),
           "gnnz_per_s": it * As.nnz / (ms * 1e-3) / 1e9})
+
+
+def cg_vectors_phase(dev, kernel_times, launches):
+    """One CG iteration's vector work on 2^24 float32 entries (the vectors
+    of HPCG at 256^3): csrc/cg_vectors.cu's three kernels against their
+    plain versions and float64; device times of the kernels, of the plain
+    steps and of the aten expressions the loop ran before them (the
+    library yardstick), beside 11 vector passes over 3.35 TB/s."""
+    import torch
+
+    from libhpc_tpu_torch.ops import cg_vectors
+
+    n, case = 1 << 24, "2^24/float32"
+    g = torch.Generator(device=dev).manual_seed(22)
+    x, r, p, noise = (torch.randn(n, generator=g, device=dev)
+                      for _ in range(4))
+    Ap = 2.0 * p + 0.1 * noise
+    del noise
+    rs = cg_vectors.sdot(r, r)
+    want64 = [v.double() for v in (x, r, p)]
+    ws, wp = cg_vectors.Workspace(r, rs), cg_vectors.Workspace(r, rs)
+    plain = [v.clone() for v in (x, r, p)]
+    cg_vectors.CG_VECTOR_LAUNCHES = 0
+    cg_vectors.dot_pAp(p, Ap, ws)
+    cg_vectors.update_xr(x, r, p, Ap, ws)
+    cg_vectors.update_p(p, r, ws)
+    # the one iteration's launches, before any timing or graph capture
+    launches["cg_vectors"] = {"cg_vectors": cg_vectors.CG_VECTOR_LAUNCHES}
+    if cg_vectors.CG_VECTOR_LAUNCHES != 3:
+        raise AssertionError(f"cg_vectors: {cg_vectors.CG_VECTOR_LAUNCHES} "
+                             "launches for one iteration")
+    xp, rp, pp = plain
+    cg_vectors.dot_pAp_torch(pp, Ap, wp)
+    cg_vectors.update_xr_torch(xp, rp, pp, Ap, wp)
+    cg_vectors.update_p_torch(pp, rp, wp)
+    # float64 of the same iteration
+    x64, r64, p64 = want64
+    A64 = Ap.double()
+    alpha = float(r64 @ r64) / float(p64 @ A64)
+    rs64 = float(r64 @ r64)
+    x64 = x64 + alpha * p64
+    r64 = r64 - alpha * A64
+    rs_new64 = float(r64 @ r64)
+    p64 = r64 + (rs_new64 / rs64) * p64
+    torch.cuda.synchronize()
+    err = 0.0
+    for got, ref, want in ((x, xp, x64), (r, rp, r64), (p, pp, p64)):
+        scale = float(want.abs().max())
+        e_plain = float((got - ref).abs().max())
+        if e_plain > TOL_PLAIN * scale:
+            raise AssertionError(f"cg_vectors: {e_plain} from the plain "
+                                 f"steps at max |v| {scale}")
+        if float((got.double() - want).abs().max()) > TOL_PLAIN * scale:
+            raise AssertionError("cg_vectors: off float64's iteration")
+        err = max(err, e_plain)
+    rel = {k: abs(float(ws.state[i]) / v - 1) for k, i, v in (
+        ("rs", cg_vectors.RS, rs_new64),
+        ("beta", cg_vectors.BETA, rs_new64 / rs64))}
+    if max(rel.values()) > TOL_PLAIN or int(ws.ticket) != 0:
+        raise AssertionError(f"cg_vectors: scalars off float64 {rel}, "
+                             f"ticket {int(ws.ticket)}")
+
+    def kernels():
+        cg_vectors.dot_pAp(p, Ap, ws)
+        cg_vectors.update_xr(x, r, p, Ap, ws)
+        cg_vectors.update_p(p, r, ws)
+
+    def plain_steps():
+        cg_vectors.dot_pAp_torch(pp, Ap, wp)
+        cg_vectors.update_xr_torch(xp, rp, pp, Ap, wp)
+        cg_vectors.update_p_torch(pp, rp, wp)
+
+    def aten():
+        alpha = rs / torch.sum(pp * Ap)
+        x2 = xp + alpha * pp
+        r2 = rp - alpha * Ap
+        rs_new = torch.sum(r2 * r2)
+        return x2, r2, r2 + (rs_new / rs) * pp
+
+    # CUPTI, or graph replay where three profiles in a row were lossy
+    want = {"cg_dot_pAp": 1, "cg_update_xr": 1, "cg_update_p": 1}
+    ms, split = device_ms(kernels, want=want)
+    plain_ms, _ = device_ms(plain_steps)
+    aten_ms, aten_split = device_ms(aten)
+    timed_by = {k: "cupti" if v else "graph" for k, v in (
+        ("kernels", ms), ("plain", plain_ms), ("aten", aten_ms))}
+    ms = ms or graph_ms(kernels)
+    plain_ms = plain_ms or graph_ms(plain_steps)
+    aten_ms = aten_ms or graph_ms(aten)
+    nbytes = 11 * 4 * n
+    WORK[("cg_vectors", case)] = (nbytes, 10 * n)
+    LIBRARY_MS["cg_vectors"] = aten_ms
+    kernel_times["cg_vectors"][case] = (ms, plain_ms, err)
+    emit({"phase": "cg_vectors", "n": n, "dtype": "float32",
+          "max_abs_err_vs_plain": err, "scalar_rel_err_vs_f64": rel,
+          "timed_by": timed_by, "ms": ms, "kernel_ms": split,
+          "events_ms": time_ms(kernels),
+          "plain_ms": plain_ms, "aten_ms": aten_ms,
+          "aten_kernel_ms": aten_split,
+          "bound_ms": nbytes / PEAK_BYTES_S * 1e3,
+          "gb_per_s": nbytes / (ms * 1e-3) / 1e9})
 
 
 def dia_xla_phase(dev):
@@ -4121,8 +4237,8 @@ def run(dev, native_build):
     from libhpc_tpu_torch.sparse.sbell import SBELL
 
     kernel_times = {k: {} for k in (
-        "near", "far", "spmv", "dia", "dia_probe", "sell", "sellp",
-        "sort_chunk",
+        "near", "far", "spmv", "dia", "dia_probe", "cg_vectors", "sell",
+        "sellp", "sort_chunk",
         "sort_chunk_staged", "sort_merge_level", "sort_merge_pair",
         "sort_split_search",
         "histogram", "sort_chunk_kv", "sort_chunk_kv_staged",
@@ -4160,6 +4276,7 @@ def run(dev, native_build):
     A3 = matrices.poisson2d(3072)
     dia_phase(A3, dev, kernel_times, family)
     dia_cg_phase(A3, dev, family)
+    cg_vectors_phase(dev, kernel_times, family)
     del A3
     dia_xla_phase(dev)
     A_p = matrices.poisson2d(1024)
@@ -4266,6 +4383,11 @@ def run(dev, native_build):
         entry("dia_probe", "dia_probe", dia_src,
               "libhpc_tpu/ops/dia_pallas.py:150",
               family["dia"]["dia_probe"], ["poisson3072"]),
+        # no Pallas kernel: XLA fused the reference's CG vector work
+        entry("cg_vectors", "cg_vectors", "libhpc_tpu_torch/csrc/cg_vectors.cu",
+              "libhpc_tpu/ops/solver.py:cg (XLA's fusion)",
+              family["dia_cg"]["cg_vectors"]
+              + family["cg_vectors"]["cg_vectors"], ["2^24/float32"]),
         entry("sell", "sell", "libhpc_tpu_torch/csrc/sell.cu",
               "libhpc_tpu/ops/ell_pallas.py:191",
               family["sell_poisson1024"]["sell"]

@@ -21,6 +21,8 @@ from typing import Callable
 
 import torch
 
+from libhpc_tpu_torch.ops import cg_vectors
+from libhpc_tpu_torch.ops.cg_vectors import sdot as _sdot
 from libhpc_tpu_torch.utils.profiling import (SOLVER_ITERATION,
                                               SOLVER_SYNC, annotate)
 
@@ -32,10 +34,6 @@ def axpy(a, x, y):
 
 def dot(x, y):
     return torch.vdot(x.reshape(-1), y.reshape(-1))
-
-
-def _sdot(x, y):
-    return torch.sum(x * y)
 
 
 def norm2(x):
@@ -50,14 +48,39 @@ def _tol2(b, tol: float, sdot=_sdot):
 
 
 def cg(matvec: Callable, b, x0=None, tol: float = 1e-6, max_iter: int = 1000):
-    """Conjugate gradient for SPD systems. Returns (x, n_iters, res2)."""
-    return _cg(matvec, b, x0, tol, max_iter, _sdot)
+    """Conjugate gradient for SPD systems. Returns (x, n_iters, res2).
+
+    After each matvec, ``cg_vectors``' three steps update x, r and p in
+    place and keep rs, p.Ap and beta in a state tensor on the vectors'
+    device: on the card three kernel launches an iteration, on the CPU
+    their plain versions, which compute what ``_cg`` computes bit for bit.
+    b and x0 are left as they are."""
+    x = (torch.zeros_like(b, memory_format=torch.contiguous_format)
+         if x0 is None else x0.clone(memory_format=torch.contiguous_format))
+    r = (b - matvec(x)).contiguous()
+    x = x.to(r.dtype)
+    p = r.clone()
+    ws = cg_vectors.Workspace(r, _sdot(r, r))
+    tol2 = _tol2(b, tol)
+    it = 0
+    while it < max_iter:
+        with annotate(SOLVER_SYNC):
+            go = bool(ws.rs > tol2)
+        if not go:
+            break
+        with annotate(SOLVER_ITERATION):
+            Ap = matvec(p)
+            cg_vectors.dot_pAp(p, Ap, ws)
+            cg_vectors.update_xr(x, r, p, Ap, ws)
+            cg_vectors.update_p(p, r, ws)
+        it += 1
+    return x, it, ws.rs.clone()
 
 
 def _cg(matvec, b, x0, tol, max_iter, sdot):
-    """cg with the dot product `sdot`: the distributed solvers
-    (parallel/) pass a dot summed over every shard, so that every rank
-    takes the same number of iterations."""
+    """cg with the dot product `sdot`, in the plain loop: the distributed
+    solvers (parallel/) pass a dot summed over every shard, so that every
+    rank takes the same number of iterations."""
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     p = r

@@ -19,8 +19,8 @@ import scipy.sparse as sps
 import torch
 
 from libhpc_tpu_torch.bench import matrices
-from libhpc_tpu_torch.ops import (_cuda_utils, far_sbell, sellp, solver,
-                                  spmv_dia, spmv_sbell, spmv_sell)
+from libhpc_tpu_torch.ops import (_cuda_utils, cg_vectors, far_sbell, sellp,
+                                  solver, spmv_dia, spmv_sbell, spmv_sell)
 from libhpc_tpu_torch.sparse import DIA, auto
 from libhpc_tpu_torch.sparse.sbell import B, W_PANES, SBELL, FarBlocks, FarPane
 
@@ -457,6 +457,113 @@ def test_cg_ranges_hold_k4_alone_and_change_nothing(cuda_device, tmp_path):
                       <= t for s, t in spans)]
     assert len(spans) == 9
     assert len(inside) == 9 and all("dia_kernel" in n for n in inside), inside
+
+
+CG_SIZES = (1, 1000, 4099, 1 << 20, 1 << 24)
+
+
+def _cg_operands(n, dtype, dev, shape=None, offset=0):
+    """x, r, p, Ap of n entries each, `offset` elements into their buffers
+    and in `shape`; p and Ap positive, so that p . Ap is well conditioned."""
+    g = torch.Generator().manual_seed(n + offset)
+
+    def vec(lo):
+        v = (torch.rand(n + offset, generator=g, dtype=torch.float64) + lo)
+        v = v.to(dtype).to(dev)[offset:]
+        return v.reshape(shape) if shape else v
+
+    return vec(-0.5), vec(-0.5), vec(0.5), vec(0.5)
+
+
+def _check_cg_steps(x, r, p, Ap):
+    """Each kernel of csrc/cg_vectors.cu against its plain version, both on
+    the card; the plain side takes the kernel's scalars before each step,
+    so that every step is compared on the same inputs."""
+    rtol = 1e-5 if x.dtype == torch.float32 else 1e-10
+    rs = cg_vectors.sdot(r, r)
+    ws, wp = cg_vectors.Workspace(r, rs), cg_vectors.Workspace(r, rs)
+    xp, rp, pp = x.clone(), r.clone(), p.clone()
+    n0 = cg_vectors.CG_VECTOR_LAUNCHES
+
+    def close(got, want):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=rtol,
+                                   atol=rtol * scale + 1e-30)
+
+    cg_vectors.dot_pAp(p, Ap, ws)
+    cg_vectors.dot_pAp_torch(pp, Ap, wp)
+    close(ws.state[:2], wp.state[:2])
+    wp.state[:2] = ws.state[:2]
+    cg_vectors.update_xr(x, r, p, Ap, ws)
+    cg_vectors.update_xr_torch(xp, rp, pp, Ap, wp)
+    close(x, xp)
+    close(r, rp)
+    close(ws.state[:3], wp.state[:3])
+    wp.state[:3] = ws.state[:3]
+    cg_vectors.update_p(p, r, ws)
+    cg_vectors.update_p_torch(pp, r, wp)
+    close(p, pp)
+    assert cg_vectors.CG_VECTOR_LAUNCHES == n0 + 3
+    assert int(ws.ticket) == 0, "a reduction left its ticket set"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", CG_SIZES)
+def test_cg_vector_kernels_match_plain(cuda_device, n, dtype):
+    _check_cg_steps(*_cg_operands(n, dtype, cuda_device))
+
+
+@pytest.mark.parametrize("layout", ["offset_by_one", "panes"])
+def test_cg_vector_kernels_take_any_contiguous_layout(cuda_device, layout):
+    """An unaligned view (the kernels' element path) and SBELL's
+    (panes, 8, 128) layout."""
+    if layout == "offset_by_one":
+        ops = _cg_operands(4099, torch.float32, cuda_device, offset=1)
+        assert all(v.data_ptr() % 16 for v in ops)
+    else:
+        ops = _cg_operands(37 * 1024, torch.float32, cuda_device,
+                           shape=(37, 8, 128))
+    _check_cg_steps(*ops)
+
+
+def _poisson_dia_cg(dev):
+    A = matrices.poisson2d(256)
+    dp = DIA.from_scipy(A).to_pallas(T=1 << 13).to(dev)
+    b = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        A.shape[0]).astype(np.float32)).to(dev)
+    return (lambda v: spmv_dia.dia_spmv_pallas(dp, v)), b
+
+
+def test_cg_on_card_is_three_launches_an_iteration_and_reproducible(
+        cuda_device):
+    """50 iterations on a Poisson DIA: three vector launches an iteration,
+    the same bits from two solves, the plain loop's x to rtol 1e-4, and
+    the caller's b and x0 left as they were."""
+    mv, b = _poisson_dia_cg(cuda_device)
+    n0 = cg_vectors.CG_VECTOR_LAUNCHES
+    x1, it1, res1 = solver.cg(mv, b, tol=0.0, max_iter=50)
+    assert it1 == 50 and cg_vectors.CG_VECTOR_LAUNCHES - n0 == 150
+    x2, it2, res2 = solver.cg(mv, b, tol=0.0, max_iter=50)
+    assert it2 == 50 and torch.equal(x1, x2) and torch.equal(res1, res2)
+    xp, itp, resp = solver._cg(mv, b, None, 0.0, 50, solver._sdot)
+    assert itp == 50
+    torch.testing.assert_close(x1, xp, rtol=1e-4,
+                               atol=1e-5 * float(xp.abs().max()))
+    torch.testing.assert_close(res1, resp, rtol=1e-3, atol=0.0)
+    x0 = 0.5 * x1
+    b_before, x0_before = b.clone(), x0.clone()
+    x3, it3, _ = solver.cg(mv, b, x0, tol=0.0, max_iter=5)
+    assert it3 == 5 and x3.data_ptr() != x0.data_ptr()
+    assert torch.equal(b, b_before) and torch.equal(x0, x0_before)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_cg_vector_kernels_refuse_half_precision(cuda_device, dtype):
+    b = torch.ones(1000, device=cuda_device, dtype=dtype)
+    n0 = cg_vectors.CG_VECTOR_LAUNCHES
+    with pytest.raises(TypeError, match="dtype"):
+        solver.cg(lambda v: 2 * v, b, tol=0.0, max_iter=3)
+    assert cg_vectors.CG_VECTOR_LAUNCHES == n0
 
 
 SELL_MATRICES = {

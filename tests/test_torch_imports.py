@@ -43,6 +43,7 @@ MODULES = [
     "libhpc_tpu_torch.ops._cuda_utils",
     "libhpc_tpu_torch.ops.spmv",
     "libhpc_tpu_torch.ops.solver",
+    "libhpc_tpu_torch.ops.cg_vectors",
     "libhpc_tpu_torch.ops.spmm",
     "libhpc_tpu_torch.ops.spgemm",
     "libhpc_tpu_torch.ops.spgemm_bsr",
