@@ -5,6 +5,7 @@ there is a card is decided inside the ``cuda_device`` fixture, never at
 import or collection time.
 """
 
+import json
 import sys
 from pathlib import Path
 
@@ -30,8 +31,17 @@ def cuda_device():
     return "cuda"
 
 
-# small sizes of each configuration for CPU runs of the whole harness
-SMALL = {"hpcg_27pt_256": {"nx": 12, "ny": 10, "nz": 9}}
+def shrink(cell):
+    """`cell` at its configuration's CPU size: the keys of
+    small/<config>.json take the place of the configuration's own, so
+    that a whole run of the harness fits a CPU test. Only the tests read
+    small/; a run on the card never does."""
+    path = cell.bench_dir / "small" / f"{cell.config_name}.json"
+    if not path.is_file():
+        raise FileNotFoundError(f"{path}: a configuration's CPU test size, "
+                                "found by its name")
+    cell.config.update(json.loads(path.read_text()))
+    return cell
 
 
 @pytest.fixture
@@ -41,8 +51,7 @@ def small_cell():
     bench = spec.load_benchmark(ROOT)
 
     def make(name):
-        cell = spec.find_cell(bench, name)
-        cell.config.update(SMALL[cell.config_name])
-        return cell
+        return shrink(spec.find_cell(bench, name,
+                                     bench_dir=ROOT / "hpcbench"))
 
     return make

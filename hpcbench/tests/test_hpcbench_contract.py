@@ -2,16 +2,19 @@
 discovery of a cell that comes as files alone, and a run in a directory
 that holds only the benchmark."""
 
+import hashlib
 import json
+import os
 import shutil
 import subprocess
 import sys
+import xml.etree.ElementTree as ET
 
 import pytest
 
 from hpcbench import harness, spec
 from hpcbench.spec import NAME_RE, UNIT_RE
-from hpcbench.tests.conftest import ROOT
+from hpcbench.tests.conftest import ROOT, shrink
 
 BENCH = spec.load_benchmark(ROOT)
 LINE_MAX = 200
@@ -103,9 +106,22 @@ def test_every_cell_reports_setup_another_end_to_end_and_a_layer():
     assert len(pairs) == len(set(pairs))
 
 
+def test_a_layer_metric_of_every_cell_names_its_cells():
+    """A per-layer metric that moves an end-to-end metric every cell
+    reports (setup_s) lists the cells it was set for: without the list, a
+    cell added later would take it on unasked."""
+    every = {m["name"] for m in BENCH["end_to_end"] if "workloads" not in m}
+    for m in BENCH["per_layer"]:
+        if m["moves"] in every:
+            assert m.get("workloads"), m["name"]
+
+
 def test_every_file_the_harness_looks_for_is_there():
     for w in BENCH["workloads"]:
         cell = spec.find_cell(BENCH, w["name"])
+        # the CPU tests' size replaces keys the configuration has
+        full = dict(cell.config)
+        assert set(shrink(cell).config) == set(full)
         assert spec.config_module(cell).make_inputs
         assert spec.reference_module(cell)
         kind = spec.kind_module(cell)
@@ -130,6 +146,12 @@ def make_inputs(cfg, seed):
 
 
 def build(inputs, cfg, device, variant="program"):
+    if variant == "control":
+        import torch
+        from hpcbench.reference import cg, tridiag
+
+        return Program(matvec=tridiag.operator(inputs, torch.bfloat16, device),
+                       solver=cg.solver(torch.bfloat16))
     from libhpc_tpu_torch.sparse.auto import auto_format
     container, matvec = auto_format(inputs.matrix, device=device)
     return Program(matvec=lambda v: matvec(container, v))
@@ -157,29 +179,46 @@ def read(rec):
 '''
 
 
-def test_a_cell_added_as_files_alone_is_found_and_runs(tmp_path):
-    """A later PR adds a configuration, a mix, a metric and a cell by
-    adding files and entries: the harness finds and runs them."""
+def _copy_benchmark(tmp_path):
     bench_dir = tmp_path / "hpcbench"
     shutil.copytree(ROOT / "hpcbench", bench_dir,
                     ignore=shutil.ignore_patterns("__pycache__"))
+    return bench_dir
+
+
+def _add_tridiag(bench_dir):
+    """The dummy configuration tridiag, its mix cg5 and its cell
+    tridiag.cg5, as a later PR would add them: files under `bench_dir`,
+    and BENCHMARK.json's entries appended to configs and workloads (the
+    caller appends the cell to its metrics' lists)."""
     (bench_dir / "configs" / "tridiag.json").write_text(json.dumps(
-        {"name": "tridiag", "rows": 500, "diagonal": 3.0, "reduced": []}))
+        {"name": "tridiag", "rows": 500, "diagonal": 3.0,
+         "dtype": "float32", "reduced": []}))
     (bench_dir / "configs" / "tridiag.py").write_text(DUMMY_CONFIG)
     (bench_dir / "reference" / "tridiag.py").write_text(DUMMY_REFERENCE)
+    (bench_dir / "small" / "tridiag.json").write_text(json.dumps(
+        {"rows": 200}))
     (bench_dir / "traffic" / "cg5.json").write_text(json.dumps(
         {"kind": "solve", "solver": "libhpc_tpu_torch.ops.solver:cg",
          "iterations": 5, "tol": 0.0, "n_rhs": 2, "rhs": "random",
          "sample": 2, "trace_seconds": 0.1}))
     (bench_dir / "limits" / "tridiag.cg5.json").write_text(json.dumps(
         {"limits": {"short": 0, "x_err": 1e-4, "matvec_err": 1e-5}}))
-    (bench_dir / "metrics" / "iterations_run.py").write_text(DUMMY_METRIC)
     bench = json.loads(json.dumps(BENCH))
     bench["configs"].append({"name": "tridiag", "source": "none",
                              "file": "hpcbench/configs/tridiag.json",
                              "reduced": [], "why": "a test"})
     bench["workloads"].append({"name": "tridiag.cg5", "config": "tridiag",
                                "traffic": "cg5", "chips": 1, "why": "a test"})
+    return bench
+
+
+def test_a_cell_added_as_files_alone_is_found_and_runs(tmp_path):
+    """A later PR adds a configuration, a mix, a metric and a cell by
+    adding files and entries: the harness finds and runs them."""
+    bench_dir = _copy_benchmark(tmp_path)
+    bench = _add_tridiag(bench_dir)
+    (bench_dir / "metrics" / "iterations_run.py").write_text(DUMMY_METRIC)
     bench["end_to_end"][0]["workloads"].append("tridiag.cg5")
     bench["per_layer"].append({"name": "iterations_run", "unit": "count",
                                "better": "higher", "source": "host_clock",
@@ -202,6 +241,69 @@ def test_a_cell_added_as_files_alone_is_found_and_runs(tmp_path):
         bench["workloads"].append({"name": "tridiag.none", "config": "tridiag",
                                    "traffic": "none", "chips": 1, "why": "x"})
         spec.find_cell(bench, "tridiag.none", bench_dir=bench_dir)
+
+
+def _hashes(root, names=None):
+    names = names or [p.relative_to(root) for p in sorted(root.rglob("*"))
+                      if p.is_file() and "__pycache__" not in p.parts]
+    return {n: hashlib.sha256((root / n).read_bytes()).hexdigest()
+            for n in names}
+
+
+# the tests of test_hpcbench_runs.py and test_same_seed_same_payloads
+# that take each cell of BENCHMARK.json, as the dummy solve cell has them
+PER_CELL = ["test_reference_agrees_with_the_programs_plain_path[{}]",
+            "test_program_run_is_correct[{}]",
+            "test_control_is_not_correct[{}]",
+            "test_fault_is_not_correct[{}-altered]",
+            "test_fault_is_not_correct[{}-half]",
+            "test_fault_is_not_correct[{}-stops_early]",
+            "test_fault_is_not_correct[{}-unchanged]",
+            "test_traced_run_reads_its_window[{}]",
+            "test_same_seed_same_payloads[{}]"]
+
+
+def test_a_configuration_added_as_files_alone_passes_the_cpu_suite(
+        tmp_path):
+    """The CPU suite takes a configuration that comes as files and
+    appended entries alone: in a copy of the benchmark (and of the port)
+    with the dummy tridiag added, the copy's own tests pass for its cell
+    as for the others (the control and each planted fault not correct),
+    and no file that was there changes."""
+    bench_dir = _copy_benchmark(tmp_path)
+    shutil.copytree(ROOT / "libhpc_tpu_torch", tmp_path / "libhpc_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "_build"))
+    before = _hashes(bench_dir)
+    bench = _add_tridiag(bench_dir)
+    # the dummy reports what the benchmark's first solve cell reports
+    solve = next(w["name"] for w in BENCH["workloads"]
+                 if spec.find_cell(BENCH, w["name"]).traffic["kind"]
+                 == "solve")
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if solve in m.get("workloads", ()):
+            m["workloads"].append("tridiag.cg5")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    report = tmp_path / "suite.xml"
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PYTEST_", "PYTHONPATH"))}
+    res = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "hpcbench/tests/test_hpcbench_runs.py",
+         "hpcbench/tests/test_hpcbench_generators.py::"
+         "test_same_seed_same_payloads", f"--junitxml={report}"],
+        cwd=tmp_path, capture_output=True, text=True, timeout=900, env=env)
+    assert res.returncode == 0, res.stdout[-4000:]
+    passed = {c.get("name") for c in ET.parse(report).iter("testcase")
+              if not len(c)}
+    for test in PER_CELL:
+        for cell in [w["name"] for w in BENCH["workloads"]] + ["tridiag.cg5"]:
+            case = test.format(cell)
+            if "stops_early" in case and spec.find_cell(
+                    bench, cell, bench_dir).traffic["kind"] == "stream":
+                continue
+            assert case in passed, case
+    assert _hashes(bench_dir, list(before)) == before
 
 
 DUMMY_KIND = '''

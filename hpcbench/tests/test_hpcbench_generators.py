@@ -1,11 +1,15 @@
 """The configurations' generators: the HPCG planes equal to scipy's
-27-point matrix, the full size's counts, and the route auto_format takes."""
+27-point matrix, the full size's counts, the route auto_format takes, and
+for every cell the seed's payloads."""
 
+import pytest
 import scipy.sparse as sps
 import torch
 
 from hpcbench import spec
 from hpcbench.tests.conftest import ROOT
+
+CELLS = [w["name"] for w in spec.load_benchmark(ROOT)["workloads"]]
 
 
 def _config(name, **over):
@@ -67,19 +71,34 @@ def test_auto_format_routes_a_small_hpcg_to_diapallas(monkeypatch):
     assert isinstance(container, DiaPallas)
 
 
-def test_same_seed_same_payloads(small_cell):
-    """The matrix is the configuration's; the right-hand sides and the
-    stream's vectors are the seed's, the same for the same seed."""
-    for name in ("hpcg_27pt_256.cg50", "hpcg_27pt_256.spmv"):
-        cell = small_cell(name)
-        inp = spec.config_module(cell).make_inputs(cell.config, 1)
-        ref = spec.reference_module(cell)
-        kind = spec.kind_module(cell)
+def _seeded(payloads):
+    """The tensors a kind draws from the seed: the payloads themselves,
+    or the fields of its payload object less ``kept``, the room made in
+    set-up for what the window keeps."""
+    if isinstance(payloads, torch.Tensor):
+        return [payloads]
+    return [v for k, v in vars(payloads).items()
+            if k != "kept" and isinstance(v, torch.Tensor)]
 
-        def make(seed):
-            pl = kind.make_payloads(cell.traffic, inp, seed, "cpu", ref)
-            return pl.bs if hasattr(pl, "bs") else pl.xs
 
-        a, b, other = make(2**31 + 5), make(2**31 + 5), make(2**40 + 7)
-        assert a.shape[1] == inp.shape[0] and a.dtype == torch.float32
-        assert torch.equal(a, b) and not torch.equal(a, other)
+@pytest.mark.parametrize("name", CELLS)
+def test_same_seed_same_payloads(small_cell, name):
+    """The configuration's data is made once; the mix's payloads are the
+    seed's, the same for the same seed, in the configuration's dtype."""
+    cell = small_cell(name)
+    inp = spec.config_module(cell).make_inputs(cell.config, 1)
+    ref = spec.reference_module(cell)
+    kind = spec.kind_module(cell)
+
+    def make(seed):
+        return _seeded(kind.make_payloads(cell.traffic, inp, seed, "cpu",
+                                          ref))
+
+    a, b, other = make(2**31 + 5), make(2**31 + 5), make(2**40 + 7)
+    assert a and len(a) == len(b) == len(other)
+    for x in a:
+        assert x.shape[-1] == inp.shape[0]
+        if x.is_floating_point() and "dtype" in cell.config:
+            assert x.dtype == getattr(torch, cell.config["dtype"])
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not all(torch.equal(x, y) for x, y in zip(a, other))

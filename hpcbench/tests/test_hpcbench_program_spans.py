@@ -18,6 +18,16 @@ from hpcbench.trace import WINDOW, Trace
 H100 = "NVIDIA H100 80GB HBM3"
 NNZ, ROWS = 3_000_000, 1_000_000
 SEED = 2**31 + 29
+BENCH = spec.load_benchmark(ROOT)
+
+
+def cells_reading(prefix):
+    """(cell, metric) for each cell whose per-layer metrics list a metric
+    named `prefix` or `prefix`.<suffix>."""
+    return [(w["name"], m["name"]) for w in BENCH["workloads"]
+            for m in spec.find_cell(BENCH, w["name"],
+                                    ROOT / "hpcbench").per_layer
+            if m["name"] == prefix or m["name"].startswith(prefix + ".")]
 
 
 def _x(cat, name, ts, dur, tid=1, **args):
@@ -136,14 +146,17 @@ def test_readers_give_nothing_without_a_trace_or_iterations():
     assert program_spans.spmv_kernel_roofline_pct(rec) is None
 
 
-def test_cpu_traced_run_prints_host_ms_per_iter(small_cell):
-    cell = small_cell("hpcg_27pt_256.cg50")
+@pytest.mark.parametrize("name,metric", cells_reading("host_ms_per_iter"))
+def test_cpu_traced_run_prints_host_ms_per_iter(small_cell, name, metric):
+    cell = small_cell(name)
     out = harness.run_cell(cell, SEED, 0.3, True, device="cpu")
     assert out["correct"]
-    assert out["metrics"]["host_ms_per_iter"]["value"] > 0
+    assert out["metrics"][metric]["value"] > 0
     # the CPU has no device trace: the device readers give nothing
-    assert "sync_idle_ms_per_iter" not in out["metrics"]
-    assert "spmv_kernel_roofline_pct.cg" not in out["metrics"]
+    for m in cell.per_layer:
+        if m["name"].startswith(("sync_idle_ms_per_iter",
+                                 "spmv_kernel_roofline_pct")):
+            assert m["name"] not in out["metrics"]
 
 
 def _traced_line(cell):
@@ -156,18 +169,19 @@ def _traced_line(cell):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell,suffix", [("hpcg_27pt_256.cg50", "cg"),
-                                         ("hpcg_27pt_256.spmv", "spmv")])
+@pytest.mark.parametrize("cell,metric",
+                         cells_reading("spmv_kernel_roofline_pct"))
 def test_traced_line_keeps_the_new_metrics_in_their_bounds(cuda_device,
-                                                           cell, suffix):
+                                                           cell, metric):
     out = _traced_line(cell)
     m = {k: v["value"] for k, v in out["metrics"].items()}
-    kernel = m[f"spmv_kernel_roofline_pct.{suffix}"]
-    # K4 alone is part of the whole call, so it reads no lower
+    kernel = m[metric]
+    suffix = metric[len("spmv_kernel_roofline_pct"):]
+    # the kernel alone is part of the whole call, so it reads no lower
     assert 0 < kernel <= 100
-    assert kernel >= m[f"spmv_roofline_pct.{suffix}"]
-    if suffix == "cg":
-        c = spec.find_cell(spec.load_benchmark(ROOT), cell)
+    assert kernel >= m["spmv_roofline_pct" + suffix]
+    c = spec.find_cell(BENCH, cell)
+    if any(x["name"] == "sync_idle_ms_per_iter" for x in c.per_layer):
         iterations = out["attempted"] * c.traffic["iterations"]
         dev = out["device"]
         idle_ms = (dev["window_s"] - dev["busy_s"]) * 1e3
@@ -186,3 +200,25 @@ def test_spmv_roofline_of_the_whole_call_is_no_higher_on_a_known_trace():
     rec = _record(events)
     assert spmv_roofline_pct(rec) <= program_spans.spmv_kernel_roofline_pct(
         rec)
+
+
+def test_idle_gap_across_a_sync_end_goes_to_the_sync():
+    """One sync, then the benchmark's matvec span in the same idle gap:
+    the gap's middle lies in the matvec span, but the host left the card
+    idle at the sync, so the gap goes to the sync; a gap with no sync end
+    in it keeps the rule of its middle."""
+    events = [
+        _x("user_annotation", WINDOW, 0, 100),
+        _x("user_annotation", program_spans.SYNC, 5, 10),
+        _x("user_annotation", "hpcbench.matvec", 18, 40),
+        _launch(1, 1), _launch(20, 2), _launch(60, 3),
+        _op("dot", 0, 12, 1), _op("k4", 50, 10, 2), _op("axpy", 70, 5, 3),
+    ]
+    gaps = dict(Trace(events).idle_gaps())
+    # 12..50 holds the sync's end (15), its middle (31) the matvec span;
+    # 60..70 and 75..100 have only the window's span at their middles
+    assert gaps == {program_spans.SYNC: pytest.approx(38e-6),
+                    WINDOW: pytest.approx(35e-6)}
+    # on the two iterations, each gap that holds a sync end is the sync's
+    assert dict(Trace(two_iterations()).idle_gaps())[program_spans.SYNC] \
+        == pytest.approx((8 + 21) * 1e-6)

@@ -1,7 +1,9 @@
-"""Whole runs of each cell on the CPU at a small size, through the
-program's plain paths: the reference agrees with the program, the control
-(the cell's lower precision in the program's place) comes out not
-correct, and so does each fault planted underneath the timed path."""
+"""Whole runs of each cell on the CPU at its configuration's small size
+(small/<config>.json), through the program's plain paths: the reference
+agrees with the program, the control (the cell's lower precision in the
+program's place) comes out not correct, and so does each fault planted
+underneath the timed path. Every test here takes each cell of
+BENCHMARK.json, so a cell added as files alone is held to them all."""
 
 import json
 import subprocess
@@ -13,7 +15,8 @@ import torch
 from hpcbench import drive, harness, spec
 from hpcbench.tests.conftest import ROOT
 
-CELLS = [w["name"] for w in spec.load_benchmark(ROOT)["workloads"]]
+BENCH = spec.load_benchmark(ROOT)
+CELLS = [w["name"] for w in BENCH["workloads"]]
 SEED = 2**31 + 11
 
 
@@ -21,16 +24,16 @@ def _run(cell, **kw):
     return harness.run_cell(cell, SEED, 0.3, False, device="cpu", **kw)
 
 
-def test_reference_agrees_with_the_programs_plain_path(small_cell):
-    for name in CELLS:
-        cell = small_cell(name)
-        inp = spec.config_module(cell).make_inputs(cell.config, 5)
-        prog = spec.config_module(cell).build(inp, cell.config, "cpu")
-        ref = spec.reference_module(cell).operator(inp, torch.float64, "cpu")
-        x = torch.randn(inp.shape[1], dtype=torch.float32)
-        want = ref(x.double())
-        got = prog.matvec(x).double()
-        assert float((got - want).abs().max() / want.abs().max()) < 1e-6
+@pytest.mark.parametrize("name", CELLS)
+def test_reference_agrees_with_the_programs_plain_path(small_cell, name):
+    cell = small_cell(name)
+    inp = spec.config_module(cell).make_inputs(cell.config, 5)
+    prog = spec.config_module(cell).build(inp, cell.config, "cpu")
+    ref = spec.reference_module(cell).operator(inp, torch.float64, "cpu")
+    x = torch.randn(inp.shape[1], dtype=torch.float32)
+    want = ref(x.double())
+    got = prog.matvec(x).double()
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-6
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -101,9 +104,13 @@ FAULTS = {"unchanged": _unchanged, "half": _half, "altered": _altered,
           "stops_early": _stops_early}
 
 
+def _kind(name):
+    return spec.find_cell(BENCH, name, ROOT / "hpcbench").traffic["kind"]
+
+
 # a stream call has no iterations to stop early
 CASES = [(name, fault) for name in CELLS for fault in sorted(FAULTS)
-         if not (fault == "stops_early" and name.endswith(".spmv"))]
+         if not (fault == "stops_early" and _kind(name) == "stream")]
 
 
 @pytest.mark.parametrize("name,fault", CASES)
@@ -113,8 +120,9 @@ def test_fault_is_not_correct(small_cell, name, fault):
     assert not out["correct"], out["checks"]
 
 
-def test_traced_run_reads_its_window(small_cell):
-    cell = small_cell("hpcg_27pt_256.cg50")
+@pytest.mark.parametrize("name", CELLS)
+def test_traced_run_reads_its_window(small_cell, name):
+    cell = small_cell(name)
     out = harness.run_cell(cell, SEED, 0.3, True, device="cpu")
     assert out["correct"]
     phases = out["setup_phases_s"]
@@ -125,9 +133,12 @@ def test_traced_run_reads_its_window(small_cell):
     assert list(marked["setup_phases_s"]) == [
         "imports", "cuda_init", "harness", "inputs", "payloads", "build",
         "warm_up"]
-    assert out["metrics"]["build_s"]["value"] == phases["build"]
+    if any(m["name"] == "build_s" for m in cell.per_layer):
+        assert out["metrics"]["build_s"]["value"] == phases["build"]
     # the CPU has no device trace: the device readers return nothing
-    assert "spmv_roofline_pct.cg" not in out["metrics"]
+    device = {m["name"] for m in cell.per_layer
+              if m["source"] == "device_trace"}
+    assert not device & set(out["metrics"])
     assert out["device"]["window_s"] > 0
     assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
 
@@ -150,11 +161,10 @@ def test_harness_loads_neither_jax_nor_the_jax_package(small_cell):
     code = (
         "import sys, json; sys.path.insert(0, %r)\n"
         "from hpcbench import harness, spec, calibrate\n"
-        "from hpcbench.tests.conftest import SMALL\n"
+        "from hpcbench.tests.conftest import shrink\n"
         "b = spec.load_benchmark(%r)\n"
         "for w in b['workloads']:\n"
-        "    c = spec.find_cell(b, w['name'])\n"
-        "    c.config.update(SMALL[c.config_name])\n"
+        "    c = shrink(spec.find_cell(b, w['name']))\n"
         "    harness.run_cell(c, 3, 0.1, True, device='cpu')\n"
         "    for m in b['end_to_end'] + b['per_layer']:\n"
         "        spec.metric_reader(c, m['name'])\n"

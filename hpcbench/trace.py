@@ -21,7 +21,7 @@ import bisect
 import json
 from pathlib import Path
 
-from hpcbench import stats
+from hpcbench import program_spans, stats
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
@@ -130,12 +130,26 @@ class Trace:
 
     def idle_gaps(self, k: int = 10):
         """[[host activity, seconds]]: the window's idle device time summed
-        by what the host thread was doing at the middle of each gap (its
-        innermost event there), the k largest."""
+        by what the host thread was doing, the k largest. A gap that runs
+        across the end of the program's convergence sync goes to the sync,
+        as ``program_spans.sync_idle_ms_per_iter`` reads it: the host
+        left the card idle there, whatever span it had reached by the
+        gap's middle. Every other gap goes to the host's innermost event
+        at its middle."""
         gaps = stats.gaps([(s, e) for s, e, _, _ in self.device_ops],
                           self.t0, self.t1)
-        mids = sorted(((s + e) / 2, e - s) for s, e in gaps)
+        sync_ends = sorted(e for _, e in program_spans.spans(
+            self, program_spans.SYNC))
         tot: dict = {}
+        mids = []
+        for s, e in gaps:
+            j = bisect.bisect_left(sync_ends, s)
+            if j < len(sync_ends) and sync_ends[j] <= e:
+                key = program_spans.SYNC
+                tot[key] = tot.get(key, 0.0) + (e - s) * 1e-6
+            else:
+                mids.append(((s + e) / 2, e - s))
+        mids.sort()
         stack: list = []
         i = 0
         for mid, length in mids:
