@@ -31,7 +31,8 @@ grids. Last, the micro-architecture suites: the harness's device-memory
 probes, the memory/compute overlap sweep at its 512 MB and every probe of
 bench/microarch.py, each kernel checked again past the 50 MB L2.
 
-    python3 chip_smoke.py        # from the root of a checkout
+    python3 chip_smoke.py          # from the root of a checkout
+    python3 chip_smoke.py --symgs  # the symgs phase alone, and its row
 
 Phases, one JSON line each; a phase's line also gives the seconds since
 the script started (t_s):
@@ -66,6 +67,15 @@ the script started (t_s):
                times of the kernels, the plain steps and the aten
                expressions the loop ran before them, beside 11 passes
                over 3.35 TB/s
+    symgs      HPCG's multigrid at 256^3 (hpcbench/configs/hpcg_mg_256:
+               four levels, 256^3 to 32^3, ops/multigrid_dia.py): a
+               forward and a backward sweep of csrc/symgs_dia.cu on each
+               level against sweep_torch on the card (1e-6 of max |x|),
+               one V-cycle against the plain path on the host (1e-5) with
+               SYMGS_LAUNCHES, MG_VCYCLES and DIA_LAUNCHES read around it
+               (112, 1, 3); device times of a sweep on each level, of one
+               256^3 colour, of the plain sweep and of a V-cycle, beside a
+               sweep's least bytes over 3.35 TB/s
   8 dia_xla    auto_format(poisson2d(1024)) is a DIA (plain dia_spmv), and
                cg_dia_poisson1024s_32it
   9 sell       SELLSplit of Poisson 1024^2 (from ELL) and the SELL that
@@ -302,6 +312,11 @@ TOL_SCAN = 1e-4       # K13 vs float64: rtol and atol (test_scan_reduce.py)
 # more tiles than resident blocks
 EDGE_SIZES = (4097, 8193, (1 << 24) + 3)
 TOL_ROW = 1e-4        # K16 vs float64: rtol (test_scan_reduce.py)
+# the SymGS kernel vs sweep_torch, of max |x|: both sum a row's 26
+# neighbours in float32, in other orders; a V-cycle compounds 14 sweeps and
+# three K4 residuals (tests/test_torch_multigrid_dia.py)
+TOL_SWEEP = 1e-6
+TOL_VCYCLE = 1e-5
 # K18 in float32 vs float64 at 1024^2: rtol 1e-4, atol 1e-3
 # (test_histogram_transpose.py); at K = 8192 the rounding of a correct FP32
 # sum of mean-zero terms nears that atol, so both sizes are held to the
@@ -2254,6 +2269,115 @@ def cg_vectors_phase(dev, kernel_times, launches):
           "aten_kernel_ms": aten_split,
           "bound_ms": nbytes / PEAK_BYTES_S * 1e3,
           "gb_per_s": nbytes / (ms * 1e-3) / 1e9})
+
+
+def symgs_phase(dev, kernel_times, launches):
+    """HPCG's V-cycle at 256^3 on the card: the SymGS kernel on every level
+    against its plain version, one V-cycle against the plain path on the
+    host and its launches, and the kernel's device times."""
+    import torch
+
+    from hpcbench import spec
+    from libhpc_tpu_torch.ops import multigrid_dia, spmv_dia, symgs_dia
+
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "hpcbench", "configs", "hpcg_mg_256")
+    with open(conf + ".json") as f:
+        cfg = json.load(f)
+    inp = spec.load_file(conf + ".py").make_inputs(cfg, 0)
+    grids = [tuple(g) for g in inp.sizes["grids"]]
+    t0 = time.perf_counter()
+    h = multigrid_dia.DiaMultigrid.from_scipy(inp.matrix, grids, device=dev)
+    build_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(25)
+    one_sweep = {"symgs_colour_kernel": 8}
+    errs, sweep_ms = {}, {}
+    for lv in h.levels:
+        case = f"{lv.grid[0]}^3"
+        P, n = lv.dp.x_pad_lo, lv.rows
+        got = torch.zeros(spmv_dia.x_ext_len(lv.dp), device=dev)
+        got[P:P + n] = torch.randn(n, generator=g, device=dev)
+        r = torch.randn(n, generator=g, device=dev)
+        want, abs_err = got.clone(), 0.0
+        for colours in (symgs_dia.FORWARD, symgs_dia.BACKWARD):
+            symgs_dia.sweep(lv.dp, lv.grid, got, r, colours)
+            symgs_dia.sweep_torch(lv.dp, lv.grid, want, r, colours)
+            err = max_err(got, want) / float(want.abs().max())
+            if not err <= TOL_SWEEP:
+                raise AssertionError(f"symgs {case}: {err} of max |x| from "
+                                     "sweep_torch")
+            errs[case] = max(errs.get(case, 0.0), err)
+            abs_err = max(abs_err, max_err(got, want))
+            want.copy_(got)
+
+        def sweep(lv=lv, x=got, r=r, colours=symgs_dia.FORWARD):
+            symgs_dia.sweep(lv.dp, lv.grid, x, r, colours)
+
+        sweep_ms[case] = device_ms(sweep, want=one_sweep)[0] or time_ms(sweep)
+        if lv is h.levels[0]:
+            fine = (lv, got, r, abs_err)
+
+    lv, x, r, err = fine
+    case, rows = f"{lv.grid[0]}^3", lv.rows
+
+    def colour0():
+        symgs_dia.sweep(lv.dp, lv.grid, x, r, (0,))
+
+    def plain():
+        symgs_dia.sweep_torch(lv.dp, lv.grid, x, r, symgs_dia.FORWARD)
+
+    colour_ms = (device_ms(colour0, want={"symgs_colour_kernel": 1})[0]
+                 or time_ms(colour0))
+    plain_ms = device_ms(plain)[0] or time_ms(plain)
+    # the least bytes of a sweep as hpcbench/roofline_mg.py counts them:
+    # 27 plane values, r and x read and x written, a row
+    WORK[("symgs", case)] = (30 * rows * 4, 2 * 27 * rows)
+    kernel_times["symgs"][case] = (sweep_ms[case], plain_ms, err)
+
+    # one V-cycle: 4 sweeps on each of three levels, 2 on the coarsest,
+    # 8 launches a sweep; a K4 residual on each level but the coarsest
+    b = torch.randn(inp.shape[0], generator=g, device=dev)
+    symgs_dia.SYMGS_LAUNCHES = 0
+    multigrid_dia.MG_VCYCLES = 0
+    spmv_dia.DIA_LAUNCHES = 0
+    z = multigrid_dia.vcycle(h, b)
+    torch.cuda.synchronize()
+    counted = (symgs_dia.SYMGS_LAUNCHES, multigrid_dia.MG_VCYCLES,
+               spmv_dia.DIA_LAUNCHES)
+    launches["symgs"] = {"symgs": counted[0], "vcycles": counted[1],
+                         "dia": counted[2], "matvecs": 3,
+                         "need": {"symgs": 8 * (4 * 3 + 2), "vcycles": 1}}
+    if counted != (112, 1, 3):
+        raise AssertionError(f"a V-cycle launched (SymGS, V-cycles, K4) "
+                             f"{counted}, expected (112, 1, 3)")
+    t0 = time.perf_counter()
+    host = multigrid_dia.DiaMultigrid.from_scipy(inp.matrix, grids,
+                                                 device="cpu")
+    want = multigrid_dia.vcycle(host, b.cpu())
+    host_s = time.perf_counter() - t0
+    del host
+    vc_err = max_err(z.cpu(), want) / float(want.abs().max())
+    if not vc_err <= TOL_VCYCLE:
+        raise AssertionError(f"V-cycle 256^3: {vc_err} of max |z| from the "
+                             "plain path")
+
+    def vcycle():
+        multigrid_dia.vcycle(h, b)
+
+    vc_ms = (device_ms(vcycle, want={"symgs_colour_kernel": 112})[0]
+             or time_ms(vcycle))
+    bound_ms = 30 * rows * 4 / PEAK_BYTES_S * 1e3
+    emit({"phase": "symgs", "grids": grids, "build_s": build_s,
+          "plane_bytes": sum(nbytes(lv.dp.dflat) for lv in h.levels),
+          "max_rel_err_vs_plain": errs,
+          "vcycle_max_rel_err_vs_plain_host": vc_err,
+          "plain_host_vcycle_s": host_s,
+          "launches_a_vcycle": launches["symgs"],
+          "sweep_device_ms": sweep_ms, "colour0_device_ms": colour_ms,
+          "sweep_plain_device_ms": plain_ms, "sweep_bound_ms": bound_ms,
+          "sweep_pct_of_bound": 100 * bound_ms / sweep_ms[case],
+          "vcycle_device_ms": vc_ms, "vcycle_event_ms": time_ms(vcycle)})
+    del h, inp
 
 
 def dia_xla_phase(dev):
@@ -4227,6 +4351,32 @@ def check_family_launches(launches: dict) -> None:
                                      f"{rec[kernel]} times, expected {need}")
 
 
+def kernel_entry(kernel_times, kind, name, source, replaces, launches,
+                 cases) -> dict:
+    """The kernels line's row of `kind` over its `cases`."""
+    ms = sum(kernel_times[kind][c][0] for c in cases)
+    plain_ms = sum(kernel_times[kind][c][1] for c in cases)
+    # each case's bound is the larger of its two times; the cases' sum
+    # is split by the kind that bounds each (K20's w = 0 and w = 64
+    # fall on both sides of the ridge)
+    t_bytes = t_ops = 0.0
+    for c in cases:
+        tb = WORK[(kind, c)][0] / PEAK_BYTES_S * 1e3
+        to = WORK[(kind, c)][1] / OPS_PEAK.get(kind, PEAK_F32_OPS_S) * 1e3
+        if tb >= to:
+            t_bytes += tb
+        else:
+            t_ops += to
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(e for _, _, e in
+                               kernel_times[kind].values()),
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": t_bytes + t_ops,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": LIBRARY_MS.get(kind)}
+
+
 def run(dev, native_build):
     """Phases 1-30 on `dev`; returns the {"kernels": [...]} record.
     native_build: the future of the native library's build (seconds)."""
@@ -4237,7 +4387,8 @@ def run(dev, native_build):
     from libhpc_tpu_torch.sparse.sbell import SBELL
 
     kernel_times = {k: {} for k in (
-        "near", "far", "spmv", "dia", "dia_probe", "cg_vectors", "sell",
+        "near", "far", "spmv", "dia", "dia_probe", "cg_vectors", "symgs",
+        "sell",
         "sellp", "sort_chunk",
         "sort_chunk_staged", "sort_merge_level", "sort_merge_pair",
         "sort_split_search",
@@ -4278,6 +4429,7 @@ def run(dev, native_build):
     dia_cg_phase(A3, dev, family)
     cg_vectors_phase(dev, kernel_times, family)
     del A3
+    symgs_phase(dev, kernel_times, family)
     dia_xla_phase(dev)
     A_p = matrices.poisson2d(1024)
     sell_phase(A_p, dev, kernel_times, family)
@@ -4324,28 +4476,8 @@ def run(dev, native_build):
           **family})
     torch.cuda.synchronize()
 
-    def entry(kind, name, source, replaces, launches, cases):
-        ms = sum(kernel_times[kind][c][0] for c in cases)
-        plain_ms = sum(kernel_times[kind][c][1] for c in cases)
-        # each case's bound is the larger of its two times; the cases' sum
-        # is split by the kind that bounds each (K20's w = 0 and w = 64
-        # fall on both sides of the ridge)
-        t_bytes = t_ops = 0.0
-        for c in cases:
-            tb = WORK[(kind, c)][0] / PEAK_BYTES_S * 1e3
-            to = WORK[(kind, c)][1] / OPS_PEAK.get(kind, PEAK_F32_OPS_S) * 1e3
-            if tb >= to:
-                t_bytes += tb
-            else:
-                t_ops += to
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": max(e for _, _, e in
-                                   kernel_times[kind].values()),
-                "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": t_bytes + t_ops,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": LIBRARY_MS.get(kind)}
+    def entry(*args):
+        return kernel_entry(kernel_times, *args)
 
     spmv_src = "libhpc_tpu_torch/csrc/sbell_spmv.cu"
     merge_src = "libhpc_tpu_torch/csrc/sort_merge.cu"
@@ -4378,8 +4510,8 @@ def run(dev, native_build):
               "libhpc_tpu/ops/spmv_pallas.py:59",
               spmv + amg_fused + dist_launches, cant),
         entry("dia", "dia", dia_src, "libhpc_tpu/ops/dia_pallas.py:100",
-              family["dia"]["dia"] + family["dia_cg"]["dia"],
-              ["poisson3072"]),
+              family["dia"]["dia"] + family["dia_cg"]["dia"]
+              + family["symgs"]["dia"], ["poisson3072"]),
         entry("dia_probe", "dia_probe", dia_src,
               "libhpc_tpu/ops/dia_pallas.py:150",
               family["dia"]["dia_probe"], ["poisson3072"]),
@@ -4388,6 +4520,11 @@ def run(dev, native_build):
               "libhpc_tpu/ops/solver.py:cg (XLA's fusion)",
               family["dia_cg"]["cg_vectors"]
               + family["cg_vectors"]["cg_vectors"], ["2^24/float32"]),
+        # no kernel of either package: HPCG's smoother, one V-cycle's
+        # launches at 256^3
+        entry("symgs", "symgs_dia", "libhpc_tpu_torch/csrc/symgs_dia.cu",
+              "none: HPCG's SymGS (no Gauss-Seidel kernel in libhpc_tpu)",
+              family["symgs"]["symgs"], ["256^3"]),
         entry("sell", "sell", "libhpc_tpu_torch/csrc/sell.cu",
               "libhpc_tpu/ops/ell_pallas.py:191",
               family["sell_poisson1024"]["sell"]
@@ -4464,6 +4601,35 @@ def run(dev, native_build):
     ]}
 
 
+SYMGS_ARG = "--symgs"
+
+
+def symgs_alone() -> int:
+    """The symgs phase alone (``chip_smoke.py --symgs``), then its row of
+    the kernels line: the whole run stops before that line where an
+    earlier phase fails."""
+    import torch
+
+    from libhpc_tpu_torch.ops import _cuda_utils
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    _cuda_utils.kernel_lib()
+    emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
+          "ptxas": _cuda_utils.ptxas_usage("symgs_dia.cu")})
+    warm_up_card()
+    kernel_times, family = {"symgs": {}}, {}
+    symgs_phase(torch.device("cuda"), kernel_times, family)
+    check_family_launches(family)
+    emit({"kernels": [kernel_entry(
+        kernel_times, "symgs", "symgs_dia",
+        "libhpc_tpu_torch/csrc/symgs_dia.cu",
+        "none: HPCG's SymGS (no Gauss-Seidel kernel in libhpc_tpu)",
+        family["symgs"]["symgs"], ["256^3"])]})
+    print(smi, flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4482,6 +4648,8 @@ def main() -> int:
     if sys.argv[1:] == [CORPUS_ARG]:
         print(json.dumps(corpus_child()), flush=True)
         return 0
+    if sys.argv[1:] == [SYMGS_ARG]:
+        return symgs_alone()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()

@@ -129,7 +129,13 @@ def pcg_op(matvec: Callable, minv: Callable, b, x0=None, tol: float = 1e-6,
 
 
 def _pcg_op(matvec, minv, b, x0, tol, max_iter, sdot):
-    """pcg_op with the dot product `sdot` (see _cg)."""
+    """pcg_op with the dot product `sdot` (see _cg).
+
+    A quotient whose denominator is exactly zero is taken as 0: at tol 0
+    a fast preconditioner drives the recursive r (and r.z) down past the
+    float32 range within a fixed count of iterations, and r.z = 0 means the
+    solve has converged, so x stays as it is where the reference's
+    0 / 0 would make it NaN; every other step is the reference's."""
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     z = minv(r)
@@ -145,16 +151,21 @@ def _pcg_op(matvec, minv, b, x0, tol, max_iter, sdot):
             break
         with annotate(SOLVER_ITERATION):
             Ap = matvec(p)
-            alpha = rz / sdot(p, Ap)
+            alpha = _quotient(rz, sdot(p, Ap))
             x = x + alpha * p
             r = r - alpha * Ap
             z = minv(r)
             rz_new = sdot(r, z)
-            p = z + (rz_new / rz) * p
+            p = z + _quotient(rz_new, rz) * p
             rz = rz_new
             rr = sdot(r, r)
         it += 1
     return x, it, rr
+
+
+def _quotient(a, b):
+    """a / b on the device, 0 where b is exactly 0."""
+    return torch.where(b != 0, a / b, 0.0)
 
 
 def bicgstab(matvec: Callable, b, x0=None, tol: float = 1e-6,

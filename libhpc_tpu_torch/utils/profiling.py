@@ -10,7 +10,8 @@ timelines; the reference re-exports ``jax.named_scope`` and wraps
     cost of one read of torch's profiler flag. The port opens such ranges
     at its layer boundaries (``libhpc.*``: the Krylov loops of
     ``ops/solver.py``, the SpMV wrappers of ``ops/spmv_dia.py`` and
-    ``ops/spmv_sbell.py``), so they cost nothing measurable on the hot
+    ``ops/spmv_sbell.py``, the V-cycle and smoother of
+    ``ops/multigrid_dia.py``), so they cost nothing measurable on the hot
     path when nobody traces. A range lands in the profiler's Chrome trace
     beside the device operations, on the same clock. For Nsight, run
     under ``torch.autograd.profiler.emit_nvtx()``: it sets the same flag
@@ -33,6 +34,8 @@ SOLVER_SYNC = "libhpc.solver.sync"            # a Krylov loop's host test
 SOLVER_ITERATION = "libhpc.solver.iteration"  # one iteration's body
 SPMV_PREPARE = "libhpc.spmv.prepare"          # x laid out for the kernel
 SPMV_LAUNCH = "libhpc.spmv.launch"            # operand checks and launch
+MG_VCYCLE = "libhpc.mg.vcycle"                # one whole V-cycle, top level
+MG_SMOOTH = "libhpc.mg.smooth"                # one SymGS of one level
 
 _OFF = contextlib.nullcontext()
 

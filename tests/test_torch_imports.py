@@ -50,6 +50,8 @@ MODULES = [
     "libhpc_tpu_torch.ops.precision",
     "libhpc_tpu_torch.ops.multigrid",
     "libhpc_tpu_torch.ops.multigrid_sbell",
+    "libhpc_tpu_torch.ops.multigrid_dia",
+    "libhpc_tpu_torch.ops.symgs_dia",
     "libhpc_tpu_torch.ops.spmv_sbell",
     "libhpc_tpu_torch.ops.far_sbell",
     "libhpc_tpu_torch.ops.spmv_dia",
