@@ -70,12 +70,14 @@ the script started (t_s):
     symgs      HPCG's multigrid at 256^3 (hpcbench/configs/hpcg_mg_256:
                four levels, 256^3 to 32^3, ops/multigrid_dia.py): a
                forward and a backward sweep of csrc/symgs_dia.cu on each
-               level against sweep_torch on the card (1e-6 of max |x|),
-               one V-cycle against the plain path on the host (1e-5) with
-               SYMGS_LAUNCHES, MG_VCYCLES and DIA_LAUNCHES read around it
-               (112, 1, 3); device times of a sweep on each level, of one
-               256^3 colour, of the plain sweep and of a V-cycle, beside a
-               sweep's least bytes over 3.35 TB/s
+               level against sweep_torch on the card (1e-6 of max |x|)
+               and, bit for bit, against its colours launched one at a
+               time, one V-cycle against the plain path on the host
+               (1e-5) with SYMGS_LAUNCHES, MG_VCYCLES and DIA_LAUNCHES
+               read around it (56, 1, 3; all 56 SymGS launches pairs);
+               device times of a sweep (4 pair launches) on each level,
+               of one 256^3 colour, of the plain sweep and of a V-cycle,
+               beside a sweep's least bytes over 3.35 TB/s
   8 dia_xla    auto_format(poisson2d(1024)) is a DIA (plain dia_spmv), and
                cg_dia_poisson1024s_32it
   9 sell       SELLSplit of Poisson 1024^2 (from ELL) and the SELL that
@@ -2273,8 +2275,9 @@ def cg_vectors_phase(dev, kernel_times, launches):
 
 def symgs_phase(dev, kernel_times, launches):
     """HPCG's V-cycle at 256^3 on the card: the SymGS kernel on every level
-    against its plain version, one V-cycle against the plain path on the
-    host and its launches, and the kernel's device times."""
+    against its plain version and its pair launches against the colours
+    launched one at a time, one V-cycle against the plain path on the host
+    and its launches, and the kernel's device times."""
     import torch
 
     from hpcbench import spec
@@ -2290,18 +2293,27 @@ def symgs_phase(dev, kernel_times, launches):
     h = multigrid_dia.DiaMultigrid.from_scipy(inp.matrix, grids, device=dev)
     build_s = time.perf_counter() - t0
     g = torch.Generator(device=dev).manual_seed(25)
-    one_sweep = {"symgs_colour_kernel": 8}
-    errs, sweep_ms = {}, {}
+    one_sweep = {"symgs_pair_kernel": 4}
+    # the same sweep as 8 launches of one colour each
+    one_colour_each = {"symgs_colour_kernel": 8}
+    errs, sweep_ms, single_ms, bit_equal = {}, {}, {}, {}
     for lv in h.levels:
         case = f"{lv.grid[0]}^3"
         P, n = lv.dp.x_pad_lo, lv.rows
         got = torch.zeros(spmv_dia.x_ext_len(lv.dp), device=dev)
         got[P:P + n] = torch.randn(n, generator=g, device=dev)
         r = torch.randn(n, generator=g, device=dev)
-        want, abs_err = got.clone(), 0.0
+        want, single, abs_err = got.clone(), got.clone(), 0.0
         for colours in (symgs_dia.FORWARD, symgs_dia.BACKWARD):
             symgs_dia.sweep(lv.dp, lv.grid, got, r, colours)
             symgs_dia.sweep_torch(lv.dp, lv.grid, want, r, colours)
+            for c in colours:
+                symgs_dia.sweep(lv.dp, lv.grid, single, r, (c,))
+            if not torch.equal(got, single):
+                raise AssertionError(
+                    f"symgs {case}: pair launches differ from the colours "
+                    f"one at a time by {max_err(got, single)}")
+            bit_equal[case] = True
             err = max_err(got, want) / float(want.abs().max())
             if not err <= TOL_SWEEP:
                 raise AssertionError(f"symgs {case}: {err} of max |x| from "
@@ -2314,6 +2326,13 @@ def symgs_phase(dev, kernel_times, launches):
             symgs_dia.sweep(lv.dp, lv.grid, x, r, colours)
 
         sweep_ms[case] = device_ms(sweep, want=one_sweep)[0] or time_ms(sweep)
+
+        def single(lv=lv, x=got, r=r):
+            for c in symgs_dia.FORWARD:
+                symgs_dia.sweep(lv.dp, lv.grid, x, r, (c,))
+
+        single_ms[case] = (device_ms(single, want=one_colour_each)[0]
+                           or time_ms(single))
         if lv is h.levels[0]:
             fine = (lv, got, r, abs_err)
 
@@ -2335,21 +2354,27 @@ def symgs_phase(dev, kernel_times, launches):
     kernel_times["symgs"][case] = (sweep_ms[case], plain_ms, err)
 
     # one V-cycle: 4 sweeps on each of three levels, 2 on the coarsest,
-    # 8 launches a sweep; a K4 residual on each level but the coarsest
+    # 4 pair launches a sweep; a K4 residual on each level but the coarsest
     b = torch.randn(inp.shape[0], generator=g, device=dev)
     symgs_dia.SYMGS_LAUNCHES = 0
+    symgs_dia.SYMGS_PAIR_LAUNCHES = 0
     multigrid_dia.MG_VCYCLES = 0
     spmv_dia.DIA_LAUNCHES = 0
     z = multigrid_dia.vcycle(h, b)
     torch.cuda.synchronize()
     counted = (symgs_dia.SYMGS_LAUNCHES, multigrid_dia.MG_VCYCLES,
                spmv_dia.DIA_LAUNCHES)
-    launches["symgs"] = {"symgs": counted[0], "vcycles": counted[1],
-                         "dia": counted[2], "matvecs": 3,
-                         "need": {"symgs": 8 * (4 * 3 + 2), "vcycles": 1}}
-    if counted != (112, 1, 3):
+    sweeps = 4 * (4 * 3 + 2)
+    launches["symgs"] = {"symgs": counted[0],
+                         "pairs": symgs_dia.SYMGS_PAIR_LAUNCHES,
+                         "vcycles": counted[1], "dia": counted[2],
+                         "matvecs": 3,
+                         "need": {"symgs": sweeps, "pairs": sweeps,
+                                  "vcycles": 1}}
+    if counted != (56, 1, 3) or symgs_dia.SYMGS_PAIR_LAUNCHES != 56:
         raise AssertionError(f"a V-cycle launched (SymGS, V-cycles, K4) "
-                             f"{counted}, expected (112, 1, 3)")
+                             f"{counted}, {symgs_dia.SYMGS_PAIR_LAUNCHES} "
+                             "SymGS pairs, expected (56, 1, 3), 56")
     t0 = time.perf_counter()
     host = multigrid_dia.DiaMultigrid.from_scipy(inp.matrix, grids,
                                                  device="cpu")
@@ -2364,16 +2389,19 @@ def symgs_phase(dev, kernel_times, launches):
     def vcycle():
         multigrid_dia.vcycle(h, b)
 
-    vc_ms = (device_ms(vcycle, want={"symgs_colour_kernel": 112})[0]
+    vc_ms = (device_ms(vcycle, want={"symgs_pair_kernel": 56})[0]
              or time_ms(vcycle))
     bound_ms = 30 * rows * 4 / PEAK_BYTES_S * 1e3
     emit({"phase": "symgs", "grids": grids, "build_s": build_s,
           "plane_bytes": sum(nbytes(lv.dp.dflat) for lv in h.levels),
           "max_rel_err_vs_plain": errs,
+          "pairs_bit_equal_to_single_colours": bit_equal,
           "vcycle_max_rel_err_vs_plain_host": vc_err,
           "plain_host_vcycle_s": host_s,
           "launches_a_vcycle": launches["symgs"],
-          "sweep_device_ms": sweep_ms, "colour0_device_ms": colour_ms,
+          "sweep_device_ms": sweep_ms,
+          "sweep_single_colours_device_ms": single_ms,
+          "colour0_device_ms": colour_ms,
           "sweep_plain_device_ms": plain_ms, "sweep_bound_ms": bound_ms,
           "sweep_pct_of_bound": 100 * bound_ms / sweep_ms[case],
           "vcycle_device_ms": vc_ms, "vcycle_event_ms": time_ms(vcycle)})

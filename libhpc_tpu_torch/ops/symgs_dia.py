@@ -21,10 +21,15 @@ forward sweep and first in the backward.
 second copy) and updates x in place inside the level's extended x
 (``x_ext``, laid out as ``spmv_dia.extend_x`` lays it out: x at
 ``x_pad_lo``, zeros around it, which ``sweep`` never writes). For CUDA
-tensors each colour is one launch of ``csrc/symgs_dia.cu`` (one ctypes call
-a sweep); CPU tensors take ``sweep_torch``, which sums each row's
-neighbours in another order. ``SYMGS_LAUNCHES`` counts kernel launches: 8
-a sweep on a grid of at least 2 points an axis.
+tensors the colours go to ``csrc/symgs_dia.cu`` (one ctypes call a sweep)
+in the launches ``colour_launches`` splits them into: two adjacent colours
+that differ only in x parity share one launch, in their order, and any
+other colour is a launch of its own (``FORWARD`` and ``BACKWARD`` are four
+pairs). A pair launch gives the same bits as its two colours launched one
+at a time. CPU tensors take ``sweep_torch``, which sums each row's
+neighbours in another order. ``SYMGS_LAUNCHES`` counts kernel launches of
+either form, 4 a sweep on a grid of at least 2 points an axis, and
+``SYMGS_PAIR_LAUNCHES`` the pair launches among them.
 """
 
 from __future__ import annotations
@@ -41,6 +46,11 @@ from libhpc_tpu_torch.ops.spmv import MAX_DIA_OFFSETS
 from libhpc_tpu_torch.ops.spmv_dia import DiaPallas, x_ext_len
 
 SYMGS_LAUNCHES = 0
+SYMGS_PAIR_LAUNCHES = 0
+
+# the longest x-line a pair launch takes: csrc/symgs_dia.cu's kMaxPairNx;
+# on longer lines a pair runs as its two colours
+MAX_PAIR_NX = 512
 
 FORWARD = (7, 6, 5, 4, 3, 2, 1, 0)
 BACKWARD = FORWARD[::-1]
@@ -55,6 +65,18 @@ def colour_rows(grid, c: int) -> int:
     """Points of colour c on the grid (nx, ny, nz)."""
     return math.prod((n - p + 1) // 2
                      for n, p in zip(grid, colour_parity(c)))
+
+
+def colour_launches(colours) -> tuple:
+    """The launches a sweep over `colours` makes on the card, in order:
+    two adjacent colours c, c ^ 1 form one pair launch, any other colour
+    is a launch alone. ``FORWARD`` gives (7, 6) (5, 4) (3, 2) (1, 0)."""
+    colours, out, i = tuple(colours), [], 0
+    while i < len(colours):
+        n = 2 if colours[i + 1:i + 2] == (colours[i] ^ 1,) else 1
+        out.append(colours[i:i + n])
+        i += n
+    return tuple(out)
 
 
 def _centre(dp: DiaPallas) -> int:
@@ -96,7 +118,8 @@ def sweep_torch(dp: DiaPallas, grid, x_ext: torch.Tensor, r: torch.Tensor,
         x_ext[P + rc] = (r[rc] - acc) / diag[rc]
 
 
-def _launch(dp: DiaPallas, grid, x_ext, r, colours, dev) -> int:
+def _launch(dp: DiaPallas, grid, x_ext, r, colours, dev) -> tuple:
+    """Launch `colours` on the card; (launches, pair launches) made."""
     nx, ny, nz = grid
     m = _check_grid(dp, grid)
     D, T = len(dp.coffs), dp.T
@@ -108,16 +131,22 @@ def _launch(dp: DiaPallas, grid, x_ext, r, colours, dev) -> int:
                  (dp.n_tiles * D * (T // 128), 128))
     check_tensor(x_ext, "x_ext", dev, (torch.float32,), (x_ext_len(dp),))
     check_tensor(r, "r", dev, (torch.float32,), (m,))
+    launches = (colour_launches(colours) if nx <= MAX_PAIR_NX
+                else tuple((c,) for c in colours))
     coffs = (ctypes.c_int * D)(*dp.coffs)
-    cols = (ctypes.c_int * max(1, len(colours)))(*colours)
+    # csrc/symgs_dia.cu takes a launch as (colour, its pair or -1)
+    flat = [c for ls in launches for c in (ls + (-1,))[:2]]
+    codes = (ctypes.c_int * max(1, len(flat)))(*flat)
     fn = kernel_fn("symgs_dia_f32", 5, 8)
     with torch.cuda.device(dev):
         rc = fn(dp.dflat.data_ptr(), x_ext.data_ptr(), r.data_ptr(),
-                ctypes.addressof(coffs), ctypes.addressof(cols), D, T,
-                _centre(dp), dp.x_pad_lo, nx, ny, nz, len(colours),
+                ctypes.addressof(coffs), ctypes.addressof(codes), D, T,
+                _centre(dp), dp.x_pad_lo, nx, ny, nz, len(launches),
                 current_stream_ptr())
     check_launch(rc, "symgs_dia_f32")
-    return sum(colour_rows(grid, c) > 0 for c in colours)
+    made = [ls for ls in launches
+            if sum(colour_rows(grid, c) for c in ls) > 0]
+    return len(made), sum(len(ls) == 2 for ls in made)
 
 
 def sweep(dp: DiaPallas, grid, x_ext: torch.Tensor, r: torch.Tensor,
@@ -125,9 +154,11 @@ def sweep(dp: DiaPallas, grid, x_ext: torch.Tensor, r: torch.Tensor,
     """Gauss–Seidel over `colours` in turn, x updated in place inside
     `x_ext` (length ``spmv_dia.x_ext_len(dp)``); `r` (m,) float32 is the
     right-hand side and `grid` (nx, ny, nz) the operator's grid."""
-    global SYMGS_LAUNCHES
+    global SYMGS_LAUNCHES, SYMGS_PAIR_LAUNCHES
     dev = kernel_device(dp.dflat, x_ext, r)
     if dev.type == "cpu":
         sweep_torch(dp, grid, x_ext, r, colours)
         return
-    SYMGS_LAUNCHES += _launch(dp, grid, x_ext, r, tuple(colours), dev)
+    launches, pairs = _launch(dp, grid, x_ext, r, tuple(colours), dev)
+    SYMGS_LAUNCHES += launches
+    SYMGS_PAIR_LAUNCHES += pairs

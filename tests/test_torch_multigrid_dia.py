@@ -24,6 +24,7 @@ from hpcbench.drive import Inputs
 from hpcbench.reference import hpcg_mg_256 as ref
 from libhpc_tpu_torch.ops import multigrid_dia as mg
 from libhpc_tpu_torch.ops import solver, spmv_dia, symgs_dia
+from libhpc_tpu_torch.sparse.dia import DIA
 from libhpc_tpu_torch.utils.profiling import MG_SMOOTH, MG_VCYCLE
 
 from _torch_port import cuda_device  # noqa: F401  (fixture)
@@ -199,6 +200,20 @@ def test_colours_split_the_grid_and_hold_no_two_neighbours(grid):
     assert not (colour[A.row[off]] == colour[A.col[off]]).any()
 
 
+@pytest.mark.parametrize("colours,launches", [
+    (symgs_dia.FORWARD, ((7, 6), (5, 4), (3, 2), (1, 0))),
+    (symgs_dia.BACKWARD, ((0, 1), (2, 3), (4, 5), (6, 7))),
+    ((7, 6, 4, 3, 2, 1, 0), ((7, 6), (4,), (3, 2), (1, 0))),
+    ((6, 7), ((6, 7),)),
+    ((7, 5), ((7,), (5,))),
+    ((), ()),
+])
+def test_colour_launches_pair_adjacent_x_parities(colours, launches):
+    """Two adjacent colours that differ only in x parity share a launch,
+    in their order; any other colour launches alone."""
+    assert symgs_dia.colour_launches(colours) == launches
+
+
 def test_sweep_refuses_a_grid_that_does_not_match():
     inp = _inputs((8, 8, 8), levels=1)
     lv = _hierarchy(inp).levels[0]
@@ -253,7 +268,9 @@ def test_symgs_kernel_matches_plain(cuda_device, n, colours):
     before = symgs_dia.SYMGS_LAUNCHES
     symgs_dia.sweep(dp, lv.grid, got, r.to(cuda_device), colours)
     torch.cuda.synchronize()
-    assert symgs_dia.SYMGS_LAUNCHES == before + len(colours)
+    # FORWARD is four pair launches, (5,) one launch alone
+    assert symgs_dia.SYMGS_LAUNCHES == before + len(
+        symgs_dia.colour_launches(colours))
     got = got.cpu()
     x0 = x_ext.clone()
     symgs_dia.sweep_torch(lv.dp, lv.grid, x_ext, r, colours)
@@ -268,14 +285,71 @@ def test_symgs_kernel_matches_plain(cuda_device, n, colours):
 
 @pytest.mark.cuda
 def test_symgs_is_8_launches_a_sweep(cuda_device):
+    """A sweep's 8 colours go in 4 pair launches: a full sweep is 4, a
+    V-cycle 4 a sweep, every one of them a pair launch."""
     inp = _inputs((32, 32, 32))
     h = _hierarchy(inp, cuda_device)
+    lv = h.levels[0]
+    x_ext = torch.zeros(spmv_dia.x_ext_len(lv.dp), device=cuda_device)
     r = _randn(inp.shape[0], 12, torch.float32).to(cuda_device)
-    before = symgs_dia.SYMGS_LAUNCHES
+    before = (symgs_dia.SYMGS_LAUNCHES, symgs_dia.SYMGS_PAIR_LAUNCHES)
+    symgs_dia.sweep(lv.dp, lv.grid, x_ext, r, symgs_dia.FORWARD)
+    torch.cuda.synchronize()
+    assert (symgs_dia.SYMGS_LAUNCHES - before[0],
+            symgs_dia.SYMGS_PAIR_LAUNCHES - before[1]) == (4, 4)
+    before = (symgs_dia.SYMGS_LAUNCHES, symgs_dia.SYMGS_PAIR_LAUNCHES)
     mg.vcycle(h, r)
     torch.cuda.synchronize()
     # 4 sweeps on each of 3 levels, 2 on the coarsest
-    assert symgs_dia.SYMGS_LAUNCHES - before == 8 * (4 * 3 + 2)
+    assert (symgs_dia.SYMGS_LAUNCHES - before[0],
+            symgs_dia.SYMGS_PAIR_LAUNCHES - before[1]) == (
+                4 * (4 * 3 + 2), 4 * (4 * 3 + 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,T", [((64, 64, 64), None), ((33, 18, 10), 256),
+                                    ((38, 10, 6), 256), ((520, 3, 2), None)])
+def test_symgs_pairs_are_bit_equal_to_single_colours(cuda_device, grid, T):
+    """A FORWARD then a BACKWARD sweep through pair launches equals, bit for
+    bit, the same colours launched one at a time. (33, 18, 10) at T = 256:
+    an odd nx, whose odd-x colours have a point fewer a line, and lines
+    that straddle tiles (every thread on 4-byte loads). (38, 10, 6) at
+    T = 256: lines that straddle tiles, half the lines off a 16-byte
+    boundary (4-byte loads), two points for each line's last thread, and
+    16-byte loads elsewhere. (520, 3, 2): lines longer than a pair launch
+    takes, so each pair runs as its two colours."""
+    inp = _inputs(grid, levels=1)
+    if T is None:
+        lv = _hierarchy(inp, cuda_device).levels[0]
+        dp = lv.dp
+    else:
+        dp = spmv_dia.DiaPallas.from_dia(
+            DIA.from_scipy(inp.matrix[0], device="cpu"), T=T,
+            device=cuda_device)
+    rows = inp.shape[0]
+    P = dp.x_pad_lo
+    paired = torch.zeros(spmv_dia.x_ext_len(dp), device=cuda_device)
+    paired[P:P + rows] = _randn(rows, 14, torch.float32).to(cuda_device)
+    single = paired.clone()
+    r = _randn(rows, 15, torch.float32).to(cuda_device)
+    for colours in (symgs_dia.FORWARD, symgs_dia.BACKWARD):
+        before = symgs_dia.SYMGS_PAIR_LAUNCHES
+        symgs_dia.sweep(dp, grid, paired, r, colours)
+        torch.cuda.synchronize()
+        assert symgs_dia.SYMGS_PAIR_LAUNCHES - before == (
+            4 if grid[0] <= symgs_dia.MAX_PAIR_NX else 0)
+        before = symgs_dia.SYMGS_PAIR_LAUNCHES
+        for c in colours:
+            symgs_dia.sweep(dp, grid, single, r, (c,))
+        torch.cuda.synchronize()
+        assert symgs_dia.SYMGS_PAIR_LAUNCHES == before
+        assert torch.equal(paired, single)
+    # the sweeps moved x, and sweep_torch agrees to float32 rounding
+    want = torch.zeros_like(paired).cpu()
+    want[P:P + rows] = _randn(rows, 14, torch.float32)
+    for colours in (symgs_dia.FORWARD, symgs_dia.BACKWARD):
+        symgs_dia.sweep_torch(dp.to("cpu"), grid, want, r.cpu(), colours)
+    assert _rel(paired.cpu(), want) < 1e-6
 
 
 @pytest.mark.cuda
